@@ -4,21 +4,36 @@
 
 Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build     the denoiser kernel (csrc/denoiser.cu) with nvcc for sm_90a;
-  3. check     the kernel against its plain PyTorch version on the card, at
-               N = 51,200 (the flagship fold, 1024 windows x 50 samples) and
-               at a ragged N;
-  4. time      the kernel's and the plain version's ms per call at
+  2. build     every kernel source (csrc/denoiser.cu, denoiser_grouped.cu,
+               denoiser_dma.cu) with nvcc for sm_90a, one nvcc each, all
+               started together;
+  3. check     B1 in float32 against its plain PyTorch version on the card,
+               at N = 51,200 (the flagship fold, 1024 windows x 50 samples)
+               and at a ragged N;
+  4. time      B1 float32's and the plain version's ms per call at
                N = 51,200, beside the least time the card could take;
-  5. main path the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
-               'best', 5 views, batch 1024, float32) from a seeded checkpoint
-               on a synthetic dataset to the frame-level AUC, through
-               `restore_and_infer`, with the kernel's launches counted;
-  6. agreement the same path twice on the same injected noise, once through
+  5. main      the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
+               'best', 5 views, batch 1024, float32) from a seeded
+               checkpoint on a synthetic dataset to the frame-level AUC,
+               through `restore_and_infer`, with the kernels' launches
+               counted;
+  6. agree     the same path twice on the same injected noise, once through
                the kernel and once through the plain version;
   7. profile   one more pass through the kernel under torch.profiler: the
                denoiser's device time, the rest of the device time, and the
-               device's idle share of the pass.
+               device's idle share of the pass;
+  8. check_bf16, check_grouped, check_dma
+               B1 at bfloat16, B2 (bfloat16) and B3 (float32 and bfloat16)
+               against their plain versions at both N;
+  9. time_bf16, time_grouped, time_dma
+               ms per forward at N = 51,200 of each, its plain version's,
+               its bound, and B1's at the same dtype in the same run; B2
+               and B3 are timed by their probe scripts
+               (mocodad_tpu_torch/tools/perf/), whose runs are those
+               kernels' paths and count their launches;
+ 10. main_bf16 the main path again with `eval_dtype: bfloat16`;
+ 11. agree_bf16 that path through the kernel and through the plain version
+               on the same noise, and its distance from the float32 path.
 Then one JSON line with each kernel's numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
@@ -30,7 +45,6 @@ import contextlib
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,12 +58,17 @@ from mocodad_tpu_torch.data import build_dataset, synthetic
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.eval.harness import post_processing_from_config
 from mocodad_tpu_torch.models import mocodad as M
-from mocodad_tpu_torch.ops import build, pallas_unet as P
+from mocodad_tpu_torch.ops import build, dma_unet as D, grouped_unet as G
+from mocodad_tpu_torch.ops import pallas_unet as P
+from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
+                                          probe_grouped_pallas)
+from mocodad_tpu_torch.tools.perf.common import (N_ROWS as N_FOLD,
+                                                 fold_inputs, rel_errors,
+                                                 time_ms)
 from mocodad_tpu_torch.training.inference import (restore_and_infer,
                                                   run_inference)
 from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
 
-N_FOLD = 1024 * 50          # one flagship batch: 1024 windows x 50 samples
 N_RAGGED = 1031
 # float32 on both sides: the kernel sums each product in another order than
 # cuBLAS does and contracts multiply-adds into FMAs, so results differ in
@@ -59,18 +78,34 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # step), and 'best' may pick another of two near-equal samples; both stay
 # far below the per-window loss spread
 PATH_RTOL, PATH_ATOL = 1e-4, 1e-5
-REPEATS = 20
+# bfloat16 on both sides at the same rounding points: a float32 sum taken
+# in another order that lands near a rounding boundary rounds the other
+# way (2^-8 relative), and later layers carry the flip forward.  So the
+# kernel is held to max |diff| within 3 % of max |want| and, tighter, mean
+# |diff| within 0.1 % of mean |want| (the float32 function is about 0.25 %
+# away on that mean).
+BF16_MAX_REL, BF16_MEAN_REL = 3e-2, 1e-3
+# the bfloat16 chain, kernel against plain version: per-window losses
+PATH_BF16_MAX_REL, PATH_BF16_MEAN_REL = 1e-2, 1e-3
 
-# the H100 SXM's float32 rate outside the tensor cores and its HBM rate
-# (NVIDIA's data sheet, dense, at the full 700 W); CUDA names that card
-# 'NVIDIA H100 80GB HBM3'.  Another card needs its own data sheet's rates.
+# the H100 SXM's float32 rate outside the tensor cores and its HBM rate,
+# and its dense bfloat16 tensor-core rate (NVIDIA's data sheet, at the
+# full 700 W); CUDA names that card 'NVIDIA H100 80GB HBM3'.  Another card
+# needs its own data sheet's rates.
 H100_SXM = 'H100 80GB HBM3'
 H100_SXM_PEAKS = (67e12, 3.35e12)
+H100_SXM_BF16_PEAK = 989e12
+
+KERNELS = (P.DENOISER, P.DENOISER_BF16, G.GROUPED, D.DMA_PIPELINED_F32,
+           D.DMA_PIPELINED)
+CSRC = 'mocodad_tpu_torch/csrc/'
+B1 = 'mocodad_tpu/ops/pallas_unet.py:105'
 
 
 def peaks_for(name: str):
+    """(float32 FLOP/s, bfloat16 FLOP/s, bytes/s) of the card."""
     if H100_SXM in name:
-        return H100_SXM_PEAKS
+        return H100_SXM_PEAKS[0], H100_SXM_BF16_PEAK, H100_SXM_PEAKS[1]
     raise RuntimeError(f'no peak rates known for {name!r}; this script '
                        f'knows the {H100_SXM} only')
 
@@ -96,29 +131,47 @@ def max_rel_excess(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return float(diff.max()), ok
 
 
-def time_ms(fn, repeats: int = REPEATS) -> float:
-    """Median ms of one call, CUDA events around each of `repeats` calls
-    after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def bf16_check(got: torch.Tensor, want: torch.Tensor, max_rel: float,
+               mean_rel: float):
+    """(max |diff|, max rel, mean rel, whether both are within bounds)."""
+    err, mx, mean = rel_errors(got, want)
+    ok = mx <= max_rel and mean <= mean_rel and \
+        bool(torch.isfinite(got.float()).all())
+    return err, mx, mean, ok
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {f'{type(k).__name__}.{getattr(k, "dtype", "")}': k.launches
+            for k in KERNELS}
+
+
+def bound(flops: float, n_bytes: float, flops_peak: float,
+          bytes_peak: float):
+    """(least ms, what sets it): operations over the peak FLOP rate, or
+    bytes (each input read once, each output written once) over the
+    memory rate, whichever is larger."""
+    t_ops, t_bytes = flops / flops_peak * 1e3, n_bytes / bytes_peak * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                 else 'bytes')
+
+
+def const_bytes(mats: torch.Tensor, vecs: torch.Tensor) -> int:
+    return mats.numel() * mats.element_size() + \
+        vecs.numel() * vecs.element_size()
 
 
 @contextlib.contextmanager
 def plain_denoiser():
     """Route the generation chain through the plain version on the card,
-    for the comparison run only."""
+    at the chain's compute dtype, for the comparison run only."""
     saved = M.denoise
-    M.denoise = P.denoise_reference
+    M.denoise = lambda x, s, f: P.denoise_reference(x, s, f,
+                                                    compute_dtype=x.dtype)
     try:
         yield
     finally:
@@ -159,6 +212,24 @@ def device_time_split(fn):
     return seconds, kernel_ms, sum(others.values()), top
 
 
+def main_path(cfg, eval_dtype: str):
+    """restore_and_infer + AUC with every launch count set to 0 just
+    before and read just after; returns (model, dataset, result, counts,
+    seconds, auc)."""
+    cfg.extras['eval_dtype'] = eval_dtype
+    reset_launches()
+    t0 = time.perf_counter()
+    model, ds, res = restore_and_infer(cfg, device='cuda')
+    seconds = time.perf_counter() - t0
+    counts = {k: k.launches for k in KERNELS}
+    auc = post_processing_from_config(res['loss'], res['trans'],
+                                      res['meta'], res['frames'], cfg)
+    if res['loss'].shape != (len(ds),) or \
+            not np.isfinite(res['loss']).all() or not 0 <= auc <= 1:
+        raise RuntimeError(f'main path ({eval_dtype}) output malformed')
+    return model, ds, res, counts, seconds, auc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -168,13 +239,16 @@ def main() -> int:
     card = card_line()
     phase('card', card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
-    flops_peak, bytes_peak = peaks_for(name)
+    flops_peak, bf16_peak, bytes_peak = peaks_for(name)
 
-    # 2. build
+    # 2. build: every source at once, then bind every entry point
     t0 = time.perf_counter()
-    build.build(P.DENOISER.source, verbose=True)
-    P.DENOISER.load()
-    phase('build', kernel='denoiser', seconds=f'{time.perf_counter() - t0:.1f}')
+    sources = sorted({k.source for k in KERNELS})
+    build.build_all(sources, verbose=True)
+    for k in KERNELS:
+        k.load()
+    phase('build', kernels=','.join(sources),
+          seconds=f'{time.perf_counter() - t0:.1f}')
 
     # 3. kernel against its plain version, flagship weights from a seed
     model = M.MoCoDADModel(flagship_config(n_generated_samples=50))
@@ -183,9 +257,7 @@ def main() -> int:
     g = torch.Generator(device='cuda').manual_seed(1)
     errs = {}
     for n in (N_FOLD, N_RAGGED):
-        x = torch.randn((2, 51, n), generator=g, device='cuda')
-        semb = torch.nn.functional.silu(
-            torch.randn((16, n), generator=g, device='cuda'))
+        x, semb = fold_inputs(folded, n, g)
         got = P.DENOISER(x, semb, folded)
         want = P.denoise_reference(x, semb, folded)
         torch.cuda.synchronize()
@@ -198,27 +270,25 @@ def main() -> int:
                                f'N={n}: max |diff| {err}')
 
     # 4. time and bound at N = 51,200
-    x = torch.randn((2, 51, N_FOLD), generator=g, device='cuda')
-    semb = torch.nn.functional.silu(
-        torch.randn((16, N_FOLD), generator=g, device='cuda'))
+    x, semb = fold_inputs(folded, N_FOLD, g)
     kernel_ms = time_ms(lambda: P.DENOISER(x, semb, folded))
     plain_ms = time_ms(lambda: P.denoise_reference(x, semb, folded))
     flops = P.denoiser_flops_per_row(folded) * N_FOLD
+    plan32 = P.kernel_plan(folded, dev)
     n_bytes = 4 * (2 * x.numel() + semb.numel()) + \
-        4 * P.kernel_plan(folded, dev).consts.numel()
-    t_ops, t_bytes = flops / flops_peak * 1e3, n_bytes / bytes_peak * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = 'operations' if t_ops >= t_bytes else 'bytes'
+        const_bytes(plan32.mats, plan32.vecs)
+    bound_ms, bound_by = bound(flops, n_bytes, flops_peak, bytes_peak)
     phase('time', n=N_FOLD, kernel_ms=f'{kernel_ms:.4f}',
           plain_ms=f'{plain_ms:.4f}', bound_ms=f'{bound_ms:.4f}',
           bound_by=bound_by, gflop=f'{flops / 1e9:.2f}',
           mbytes=f'{n_bytes / 1e6:.2f}',
           kernel_tflops=f'{flops / kernel_ms / 1e9:.2f}', card=repr(card))
 
-    # 5. the main path: checkpoint -> views -> encoder -> 9-step chain ->
-    # best -> losses -> AUC, on a synthetic dataset
+    entries = {}
     work = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
+        # 5. the main path: checkpoint -> views -> encoder -> 9-step chain
+        # -> best -> losses -> AUC, on a synthetic dataset
         data_dir = os.path.join(work, 'data')
         synthetic.generate(data_dir, seed=0, n_scenes=2,
                            n_clips_per_split=3, n_actors=3, n_frames=120)
@@ -232,23 +302,17 @@ def main() -> int:
         torch.save({'state_dict': net.state_dict()},
                    os.path.join(work, cfg.load_ckpt))
 
-        P.DENOISER.launches = 0
-        t0 = time.perf_counter()
-        model, ds, res = restore_and_infer(cfg, device='cuda')
-        seconds = time.perf_counter() - t0
-        launches = P.DENOISER.launches
+        model, ds, res, counts, seconds, auc = main_path(cfg, 'float32')
+        launches = counts[P.DENOISER]
         n_batches = -(-len(ds) // cfg.batch_size)
-        auc = post_processing_from_config(res['loss'], res['trans'],
-                                          res['meta'], res['frames'], cfg)
         phase('main', windows=len(ds), batches=n_batches,
               launches=launches, seconds=f'{seconds:.3f}',
               windows_per_s=f'{len(ds) / seconds:.1f}', auc=f'{auc:.6f}')
-        if launches != 9 * n_batches:
-            raise RuntimeError(f'{launches} kernel launches on the main '
-                               f'path, expected 9 x {n_batches}')
-        if res['loss'].shape != (len(ds),) or \
-                not np.isfinite(res['loss']).all() or not 0 <= auc <= 1:
-            raise RuntimeError('main path output malformed')
+        if launches != 9 * n_batches or \
+                sum(counts.values()) != launches:
+            raise RuntimeError(f'kernel launches on the main path: '
+                               f'{launch_counts()}, expected 9 x '
+                               f'{n_batches} of the float32 kernel only')
 
         # 6. the same path through the kernel and the plain version
         net2 = model.build_net()
@@ -258,10 +322,10 @@ def main() -> int:
         noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
                              model.n_frames_corrupt, model.n_joints)
 
-        def run():
+        def run(m=model):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            r = run_inference(model, net2, ds, cfg.batch_size, cfg.seed,
+            r = run_inference(m, net2, ds, cfg.batch_size, cfg.seed,
                               dev, noise_fn=noise)
             return r, time.perf_counter() - t
 
@@ -291,16 +355,170 @@ def main() -> int:
               idle_share=(f'{1 - (kernel_dev_ms + other_dev_ms) / wall_ms:.3f}'
                           if measured else 'not measured'),
               top_other=json.dumps([[k, round(v, 2)] for k, v in top]))
+        entries['denoiser'] = dict(
+            dtype='float32', path='main, eval_dtype float32',
+            source=CSRC + 'denoiser.cu', replaces=B1, launches=launches,
+            max_abs_err=errs[N_FOLD], ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+
+        # 8. the bfloat16 kernels against their plain versions
+        bf16_errs = {}
+        for n in (N_FOLD, N_RAGGED):
+            x, semb = fold_inputs(folded, n, g)
+            xb = x.bfloat16()
+            cases = (
+                ('check_bf16', 'denoiser_bf16',
+                 lambda: P.DENOISER_BF16(xb, semb, folded),
+                 lambda: P.denoise_reference(xb, semb, folded,
+                                             compute_dtype=torch.bfloat16)),
+                ('check_grouped', 'denoiser_grouped',
+                 lambda: G.GROUPED(xb, semb.bfloat16(), folded),
+                 lambda: G.grouped_reference(xb, semb.bfloat16(), folded)),
+                ('check_dma', 'denoiser_dma_bf16',
+                 lambda: D.DMA_PIPELINED(x, semb, folded),
+                 lambda: D.dma_reference(x, semb, folded, torch.bfloat16)))
+            for ph, key, kernel, plain in cases:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err, mx, mean, ok = bf16_check(got, want, BF16_MAX_REL,
+                                               BF16_MEAN_REL)
+                bf16_errs[(key, n)] = err
+                phase(ph, kernel=key, n=n, max_abs_err=err,
+                      max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+                      bound_max_rel=BF16_MAX_REL,
+                      bound_mean_rel=BF16_MEAN_REL, ok=ok)
+                if not ok:
+                    raise RuntimeError(f'{key} disagrees with its plain '
+                                       f'version at N={n}')
+            got = D.DMA_PIPELINED_F32(x, semb, folded)
+            want = D.dma_reference(x, semb, folded, torch.float32)
+            torch.cuda.synchronize()
+            err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
+            bf16_errs[('denoiser_dma_f32', n)] = err
+            phase('check_dma', kernel='denoiser_dma_f32', n=n,
+                  max_abs_err=err, rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+            if not ok:
+                raise RuntimeError(f'denoiser_dma_f32 disagrees with its '
+                                   f'plain version at N={n}')
+
+        # 9. times at N = 51,200; B2's and B3's through their probe scripts,
+        # whose runs are their paths (counts from 0 just before, read just
+        # after)
+        x, semb = fold_inputs(folded, N_FOLD, g)
+        xb, sb = x.bfloat16(), semb.bfloat16()
+        plan16 = P.kernel_plan(folded, dev, torch.bfloat16)
+        bf16_bytes = 2 * 2 * x.numel() + 4 * semb.numel() + \
+            const_bytes(plan16.mats, plan16.vecs)
+        b_ms, b_by = bound(flops, bf16_bytes, bf16_peak, bytes_peak)
+        bf_ms = time_ms(lambda: P.DENOISER_BF16(xb, semb, folded))
+        bf_plain = time_ms(lambda: P.denoise_reference(
+            xb, semb, folded, compute_dtype=torch.bfloat16))
+        phase('time_bf16', n=N_FOLD, kernel_ms=f'{bf_ms:.4f}',
+              plain_ms=f'{bf_plain:.4f}', bound_ms=f'{b_ms:.4f}',
+              bound_by=b_by, mbytes=f'{bf16_bytes / 1e6:.2f}',
+              b1_f32_ms=f'{kernel_ms:.4f}',
+              kernel_tflops=f'{flops / bf_ms / 1e9:.2f}', card=repr(card))
+        entries['denoiser_bf16'] = dict(
+            dtype='bfloat16', path='main, eval_dtype bfloat16',
+            source=CSRC + 'denoiser.cu', replaces=B1,
+            max_abs_err=bf16_errs[('denoiser_bf16', N_FOLD)], ms=bf_ms,
+            plain_ms=bf_plain, bound_ms=b_ms, bound_by=b_by)
+
+        reset_launches()
+        pr = probe_grouped_pallas.probe(N_FOLD)
+        g_launches = G.GROUPED.launches
+        g_plain = time_ms(lambda: G.grouped_reference(xb, sb, folded))
+        g_bytes = 2 * (2 * x.numel() + semb.numel()) + \
+            const_bytes(plan16.mats, plan16.vecs)
+        gb_ms, gb_by = bound(flops, g_bytes, bf16_peak, bytes_peak)
+        inter = G.intermediate_bytes(folded, N_FOLD)
+        phase('time_grouped', n=N_FOLD, kernel_ms=f'{pr["ms"]:.4f}',
+              plain_ms=f'{g_plain:.4f}', bound_ms=f'{gb_ms:.4f}',
+              bound_by=gb_by, b1_bf16_ms=f'{pr["b1_ms"]:.4f}',
+              probe_launches=g_launches, nsub=pr['nsub'], card=repr(card))
+        phase('time_grouped', intermediate_mbytes=f'{inter / 1e6:.2f}',
+              intermediate_ms_at_peak=f'{inter / bytes_peak * 1e3:.4f}')
+        if g_launches == 0 or g_launches % 5:
+            raise RuntimeError(f'grouped probe path launched {g_launches}')
+        entries['denoiser_grouped'] = dict(
+            dtype='bfloat16', path='probe_grouped_pallas',
+            source=CSRC + 'denoiser_grouped.cu',
+            replaces='tools/perf/probe_grouped_pallas.py:111',
+            launches=g_launches,
+            max_abs_err=bf16_errs[('denoiser_grouped', N_FOLD)],
+            ms=pr['ms'], plain_ms=g_plain, bound_ms=gb_ms, bound_by=gb_by)
+
+        for dtype, kernel, key in (
+                (torch.float32, D.DMA_PIPELINED_F32, 'denoiser_dma_f32'),
+                (torch.bfloat16, D.DMA_PIPELINED, 'denoiser_dma_bf16')):
+            reset_launches()
+            pr = probe_dma_pipeline.probe(dtype, N_FOLD)
+            d_launches = kernel.launches
+            d_plain = time_ms(lambda: D.dma_reference(x, semb, folded, dtype))
+            plan = P.kernel_plan(folded, dev, dtype)
+            d_bytes = 4 * (2 * x.numel() + semb.numel()) + \
+                const_bytes(plan.mats, plan.vecs)
+            db_ms, db_by = bound(
+                flops, d_bytes,
+                flops_peak if dtype == torch.float32 else bf16_peak,
+                bytes_peak)
+            phase('time_dma', kernel=key, n=N_FOLD,
+                  kernel_ms=f'{pr["ms"]:.4f}', plain_ms=f'{d_plain:.4f}',
+                  bound_ms=f'{db_ms:.4f}', bound_by=db_by,
+                  b1_ms=f'{pr["b1_ms"]:.4f}', probe_launches=d_launches,
+                  card=repr(card))
+            if d_launches == 0:
+                raise RuntimeError(f'{key} probe path launched nothing')
+            entries[key] = dict(
+                dtype=str(dtype)[6:], path='probe_dma_pipeline',
+                source=CSRC + 'denoiser_dma.cu',
+                replaces='tools/perf/probe_dma_pipeline.py:39',
+                launches=d_launches, max_abs_err=bf16_errs[(key, N_FOLD)],
+                ms=pr['ms'], plain_ms=d_plain, bound_ms=db_ms,
+                bound_by=db_by)
+
+        # 10. the main path at eval_dtype bfloat16
+        model16, ds16, res16, counts, seconds, auc = main_path(cfg,
+                                                              'bfloat16')
+        launches16 = counts[P.DENOISER_BF16]
+        phase('main_bf16', windows=len(ds16), batches=n_batches,
+              launches=launches16, float32_launches=counts[P.DENOISER],
+              seconds=f'{seconds:.3f}',
+              windows_per_s=f'{len(ds16) / seconds:.1f}', auc=f'{auc:.6f}')
+        if launches16 != 9 * n_batches or \
+                sum(counts.values()) != launches16:
+            raise RuntimeError(f'kernel launches on the bfloat16 main path: '
+                               f'{launch_counts()}, expected 9 x '
+                               f'{n_batches} of the bfloat16 kernel only')
+        entries['denoiser_bf16']['launches'] = launches16
+
+        # 11. the bfloat16 path through the kernel and the plain version
+        r16_kernel, s16_kernel = run(model16)
+        with plain_denoiser():
+            r16_plain, s16_plain = run(model16)
+        lk16 = torch.from_numpy(r16_kernel['loss'])
+        err, mx, mean, ok = bf16_check(
+            lk16, torch.from_numpy(r16_plain['loss']), PATH_BF16_MAX_REL,
+            PATH_BF16_MEAN_REL)
+        vs32, vs32_rel, _ = rel_errors(lk16, lk)
+        phase('agree_bf16', windows=len(lk16), max_abs_err=err,
+              max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+              bound_max_rel=PATH_BF16_MAX_REL,
+              bound_mean_rel=PATH_BF16_MEAN_REL, ok=ok,
+              vs_float32_max_abs=vs32, vs_float32_max_rel=f'{vs32_rel:.3e}',
+              kernel_windows_per_s=f'{len(ds16) / s16_kernel:.1f}',
+              plain_windows_per_s=f'{len(ds16) / s16_plain:.1f}')
+        if not ok:
+            raise RuntimeError('the bfloat16 main path through the kernel '
+                               'disagrees with the plain version')
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({'kernels': [{
-        'name': 'denoiser', 'route': 'cuda',
-        'source': 'mocodad_tpu_torch/csrc/denoiser.cu',
-        'replaces': 'mocodad_tpu/ops/pallas_unet.py:105',
-        'launches': launches, 'max_abs_err': errs[N_FOLD],
-        'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': None}]}), flush=True)
+    order = ('denoiser', 'denoiser_bf16', 'denoiser_grouped',
+             'denoiser_dma_f32', 'denoiser_dma_bf16')
+    print(json.dumps({'kernels': [
+        dict(name=k, route='cuda', **entries[k], library_ms=None)
+        for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

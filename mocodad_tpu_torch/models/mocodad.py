@@ -1,20 +1,32 @@
 """MoCoDAD: the network container and multi-sample generation.
 
 PyTorch counterpart of `mocodad_tpu/models/mocodad.py` (reference
-models/mocodad.py).  This slice ports the eval path of the inject family:
-the AE / E condition encoders, the STSAEUnet denoiser and the float32 DDPM
-chain of `generate`.  Training, the other conditioning strategies, the
-latent variant, `eval_dtype: bfloat16` and the DDIM / antithetic samplers
-are not ported yet and raise NotImplementedError.
+models/mocodad.py).  The port covers the eval path of the inject family:
+the AE / E condition encoders, the STSAEUnet denoiser and the DDPM chain
+of `generate`, at `eval_dtype` float32 or bfloat16.  Training, the other
+conditioning strategies, the latent variant and the DDIM / antithetic
+samplers are not ported yet and raise NotImplementedError, as does any
+other `eval_dtype`.
 
 Generation folds the sample axis S into the batch, b-major
 (row = b*S + s), and runs the 9-step chain with the sampler state in the
 denoiser's (C, T*V, N) layout, as `build_pallas_eval` does
-(mocodad_tpu/models/mocodad.py:528-565): each step computes
-silu(cond_emb + t_emb) once as (E, N), calls `ops.pallas_unet.denoise`
-(the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor),
-and applies the DDPM update c1 (x - c2 eps) + c3 z in float32, with z = 0
-at t == 1.
+(mocodad_tpu/models/mocodad.py:502-567): each step computes
+silu(cond_emb + t_emb) once as (E, N) in float32, calls
+`ops.pallas_unet.denoise` (the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor), and applies the DDPM update
+c1 (x - c2 eps) + c3 z in float32, with z = 0 at t == 1.
+
+`eval_dtype: bfloat16` follows `build_pallas_eval` (:516-565), which runs
+the JAX package's kernel B1, and not the JAX `generate()` at bfloat16
+(:401-407, :480-487), which is another function: it casts every variable
+to bfloat16, the condition encoder's included, runs the XLA fast path,
+and keeps the DDPM update in bfloat16.  Here, as in `build_pallas_eval`,
+the condition encoder runs in float32; x is bfloat16 between steps
+(:539, :557), and the denoiser computes in bfloat16 with float32
+accumulation; each step's update is computed in float32 from the
+float32 eps, with z drawn in float32 (:548-557), then rounded back to
+bfloat16; the losses are float32 (:562-565).
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ from mocodad_tpu_torch.models.losses import aggregate
 from mocodad_tpu_torch.nn import STSAE, STSE, STSAEUnet, sinusoidal_pos_encoding
 from mocodad_tpu_torch.ops.pallas_unet import (FoldedDenoiser, denoise,
                                                fold_denoiser)
+
+EVAL_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
 class MoCoDADNet(nn.Module):
@@ -99,9 +113,11 @@ class MoCoDADModel:
         self.model_return_value = cfg.model_return_value
         self.schedule = make_schedule(cfg.noise_steps)
         eval_dtype = str(cfg.extras.get('eval_dtype', 'float32'))
-        if eval_dtype != 'float32':
+        if eval_dtype not in EVAL_DTYPES:
             raise NotImplementedError(
-                f'eval_dtype {eval_dtype!r} is not ported yet (float32 only)')
+                f'eval_dtype {eval_dtype!r} is not ported (float32 or '
+                'bfloat16)')
+        self.eval_dtype = EVAL_DTYPES[eval_dtype]
         sampler = str(cfg.extras.get('sampler', 'ddpm'))
         if sampler != 'ddpm':
             raise NotImplementedError(
@@ -149,8 +165,10 @@ class MoCoDADModel:
         (S*B, C, Tc, V) and the per-step noise (noise_steps-1, S*B, C, Tc,
         V), both in the b-major fold (row = b*S + s); it replaces the
         gaussian draws so the chain can be compared step for step with the
-        JAX package.  `folded` is `self.fold(net)`, passed in by callers
-        that generate many batches with one set of weights.
+        JAX package.  At bfloat16 x0 is rounded to bfloat16 (JAX draws it
+        in bfloat16) and the per-step noise stays float32.  `folded` is
+        `self.fold(net)`, passed in by callers that generate many batches
+        with one set of weights.
         """
         aggr = aggr_strategy or self.aggregation_strategy
         s = n_samples or self.n_generated_samples
@@ -170,6 +188,7 @@ class MoCoDADModel:
         c, tc, v = self.num_coords, self.n_frames_corrupt, self.n_joints
         n = b * s
         n_steps = self.schedule.noise_steps - 1
+        dt = self.eval_dtype
 
         def to_ctn(z: torch.Tensor) -> torch.Tensor:
             # (N, C, Tc, V) -> (C, Tc*V, N)
@@ -187,21 +206,23 @@ class MoCoDADModel:
             x = to_ctn(torch.as_tensor(x0))
         else:
             x = torch.randn((c, tc * v, n), generator=rng, device=dev)
+        x = x.to(dt)
         for i, t in enumerate(range(n_steps, 0, -1)):
             t_emb = sinusoidal_pos_encoding(
                 torch.full((1,), t, device=dev), self.cfg.embedding_dim)
             silu_emb = torch.nn.functional.silu(emb_t + t_emb.T).contiguous()
-            eps = denoise(x, silu_emb, folded)
+            eps = denoise(x, silu_emb, folded).float()
+            x32 = x.float()
             c1, c2, c3 = ddpm_step_coefficients(self.schedule, t)
             if t > 1:
                 z = (to_ctn(torch.as_tensor(noise_override[1][i]))
                      if noise_override is not None else
                      torch.randn(x.shape, generator=rng, device=dev))
-                x = c1 * (x - c2 * eps) + c3 * z
+                x = (c1 * (x32 - c2 * eps) + c3 * z).to(dt)
             else:
-                x = c1 * (x - c2 * eps)
+                x = (c1 * (x32 - c2 * eps)).to(dt)
         # (C, Tc*V, B*S) -> (S, B, C, Tc, V) for aggregation
-        xs = x.reshape(c, tc, v, b, s).permute(4, 3, 0, 1, 2)
+        xs = x.float().reshape(c, tc, v, b, s).permute(4, 3, 0, 1, 2)
         return aggregate(aggr, self.loss_kind, xs, corrupt_data,
                          generator=rng)
 

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-Each source under `csrc/` becomes one shared library with a plain C
+Each `.cu` source under `csrc/` becomes one shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) at first use into
-`mocodad_tpu_torch/build/` and rebuilt when the source's hash changes.
+`mocodad_tpu_torch/build/` and rebuilt when the hash of the source and of
+the headers under `csrc/` changes.
 No PyTorch headers are involved, so a build takes seconds.  Nothing is
 built at import time: the CPU tests import every module.
 """
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
@@ -37,35 +38,58 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the build of `csrc/<source>` lives; the name carries the hash
-    of the source, so an edited source gets a fresh build."""
-    with open(os.path.join(CSRC_DIR, source), 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    of the source and of every header under `csrc/` (the sources share
+    one), so an edited source or header gets a fresh build."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith('.cuh'))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), 'rb') as f:
+            h.update(name.encode() + b'\0' + f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f'lib{stem}-{digest}.so')
+    return os.path.join(BUILD_DIR, f'lib{stem}-{h.hexdigest()[:16]}.so')
+
+
+def build_all(sources: Iterable[str], verbose: bool = False) -> List[str]:
+    """Compile every `csrc/<source>` whose build does not exist, one nvcc
+    per source, all started together; returns the paths.  Raises
+    RuntimeError, with nvcc's output, if an nvcc fails."""
+    sources = list(sources)
+    outs = [library_path(s) for s in sources]
+    todo = [(s, o) for s, o in zip(sources, outs) if not os.path.exists(o)]
+    if not todo:
+        return outs
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    running = []
+    for source, out in todo:
+        tmp = f'{out}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+               os.path.join(CSRC_DIR, source)]
+        if verbose:
+            cmd.insert(1, '-Xptxas=-v')
+        running.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, tmp, out, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{" ".join(cmd)}\n{log}')
+            continue
+        if verbose:
+            print(log, end='', flush=True)
+            print(f'built {os.path.basename(out)} '
+                  f'({time.perf_counter() - t0:.1f} s since the start)',
+                  flush=True)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+    return outs
 
 
 def build(source: str, verbose: bool = False) -> str:
-    """Compile `csrc/<source>` unless its build exists; returns the path.
-    Raises (CalledProcessError, with nvcc's output) if nvcc fails."""
-    out = library_path(source)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, os.path.join(CSRC_DIR, source)]
-    if verbose:
-        cmd.insert(1, '-Xptxas=-v')
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise subprocess.CalledProcessError(proc.returncode, cmd,
-                                            proc.stdout, proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr, end='', flush=True)
-        print(f'built {os.path.basename(out)} in '
-              f'{time.perf_counter() - t0:.1f} s', flush=True)
-    os.replace(tmp, out)
-    return out
+    """Compile `csrc/<source>` unless its build exists; returns the path."""
+    return build_all([source], verbose)[0]
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 """The fused eval-mode U-Net denoiser: folded constants, the plain PyTorch
-version, and the wrapper of the hand-written CUDA kernel.
+version, the kernels' shared packing and shared-memory planning, and the
+wrapper of the hand-written CUDA kernel B1.
 
 Counterpart of `mocodad_tpu/ops/pallas_unet.py` (`build_pallas_denoiser`,
 the JAX package's Pallas TPU kernel).  The same function, in the same
@@ -7,22 +8,30 @@ batch-in-last-dim layout:
 
     eps = denoise(x_ctn, silu_emb_en, folded)
     x_ctn (C_in, T*V, N), silu_emb_en (E, N) = silu(t_emb + cond_emb)^T,
-    eps   (C_in, T*V, N)
+    eps   (C_in, T*V, N), in x_ctn's dtype
 
 `fold_denoiser` folds an `STSAEUnet`'s eval-mode BatchNorms, biases and
 graph operators into per-layer constants exactly as the JAX host folding
 does (pallas_unet.py:68-102).  `denoise_reference` applies them layer by
 layer with einsums, in B1's order and association (graph operator first,
-then channel mix).  `denoise` routes by device: a CPU tensor goes to
-`denoise_reference`; a CUDA tensor launches the kernel in
-`csrc/denoiser.cu` (`DENOISER`), or raises.
+then channel mix), at a compute dtype: float32, or bfloat16 with float32
+accumulation and B1's rounding points (pallas_unet.py:157-204; the
+matrices rounded to bfloat16 as `_fold_gcn` / `_fold_joint` store them,
+biases and affines float32).  `denoise` routes by device: a CPU tensor
+goes to `denoise_reference` at x's dtype; a CUDA tensor launches the
+kernel in `csrc/denoiser.cu` (`DENOISER` for float32 x, `DENOISER_BF16`
+for bfloat16 x), or raises.
+
+The grouped (B2, `ops/grouped_unet.py`) and DMA-pipelined (B3,
+`ops/dma_unet.py`) kernels compute the same function from the same packed
+constants; their tables come from `pack_layers` and `plan_arena` here.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,15 +68,17 @@ class JointW:
 @dataclass
 class FoldedDenoiser:
     """All folded constants of one STSAEUnet, in B1's order, plus (once
-    built) their packed form for the CUDA kernel."""
+    built) their packed forms for the CUDA kernels and their copies
+    rounded to a compute dtype."""
     c_in: int
     n_frames: int
     n_joints: int
     embedding_dim: int
     gcn: List[GcnW]
     joint: List[JointW]
-    _packed: Dict[torch.device, 'KernelPlan'] = field(default_factory=dict,
-                                                      repr=False)
+    _packed: Dict[tuple, object] = field(default_factory=dict, repr=False)
+    _rounded: Dict[torch.dtype, 'FoldedDenoiser'] = field(
+        default_factory=dict, repr=False)
 
     @property
     def n_constants(self) -> int:
@@ -157,10 +168,48 @@ def fold_denoiser(unet: STSAEUnet) -> FoldedDenoiser:
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _gcn_reference(f: torch.Tensor, w: GcnW, semb: torch.Tensor
-                   ) -> torch.Tensor:
-    """One ST-GCNN layer on (Ci, TV, N) -> (Co, TV, N) (pallas_unet.py:160-179)."""
+def rounder(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """float32 -> float32 rounding at a compute dtype: the identity for
+    float32, round to nearest even bfloat16 (kept as float32) for
+    bfloat16."""
+    if dtype == torch.float32:
+        return lambda t: t
+    if dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).float()
+    raise ValueError(f'no compute dtype {dtype}; float32 or bfloat16')
+
+
+def compute_weights(folded: FoldedDenoiser,
+                    dtype: torch.dtype) -> FoldedDenoiser:
+    """The folded constants as a kernel at `dtype` stores them: the
+    matrices (k2, w2, wr2, we2, d2) rounded to `dtype`, held as float32;
+    bias, slope, eb, rs and rt float32 (pallas_unet.py:84-89, :100-102).
+    Built once per dtype."""
+    if dtype == torch.float32:
+        return folded
+    if dtype not in folded._rounded:
+        r = rounder(dtype)
+        folded._rounded[dtype] = FoldedDenoiser(
+            c_in=folded.c_in, n_frames=folded.n_frames,
+            n_joints=folded.n_joints, embedding_dim=folded.embedding_dim,
+            gcn=[GcnW(k2=r(w.k2), w2=r(w.w2), bias=w.bias, slope=w.slope,
+                      we2=r(w.we2), eb=w.eb,
+                      wr2=None if w.wr2 is None else r(w.wr2))
+                 for w in folded.gcn],
+            joint=[JointW(d2=r(j.d2), rs=j.rs, rt=j.rt)
+                   for j in folded.joint])
+    return folded._rounded[dtype]
+
+
+def gcn_reference(f: torch.Tensor, w: GcnW, semb: torch.Tensor,
+                  rnd: Callable, round_g: bool = False) -> torch.Tensor:
+    """One ST-GCNN layer on (Ci, TV, N) -> (Co, TV, N) (pallas_unet.py
+    :160-179): f and semb hold values of the compute dtype, sums are
+    float32, the output is rounded.  The graph-mixed g stays float32 (B1)
+    or is rounded before the channel mix (`round_g`, B2)."""
     g = torch.einsum('kx,cxn->ckn', w.k2, f)             # graph operator
+    if round_g:
+        g = rnd(g)
     y = torch.einsum('oc,ckn->okn', w.w2, g)             # channel mix
     if w.wr2 is not None:
         y = y + torch.einsum('oc,ckn->okn', w.wr2, f)
@@ -169,61 +218,92 @@ def _gcn_reference(f: torch.Tensor, w: GcnW, semb: torch.Tensor
     y = y + w.bias[:, None, None]
     y = torch.where(y >= 0, y, w.slope * y)
     e = w.we2 @ semb + w.eb[:, None]                     # (Co, N)
-    return y + e[:, None, :]
+    return rnd(y + e[:, None, :])
 
 
-def _joint_reference(f: torch.Tensor, w: JointW) -> torch.Tensor:
-    """Joint re-scaling on (C, TVi, N) -> (C, TVo, N) (pallas_unet.py:181-184)."""
+def joint_reference(f: torch.Tensor, w: JointW, rnd: Callable
+                    ) -> torch.Tensor:
+    """Joint re-scaling on (C, TVi, N) -> (C, TVo, N), rounded
+    (pallas_unet.py:181-184)."""
     h = torch.einsum('kx,cxn->ckn', w.d2, f)
-    return h * w.rs[None, :, None] + w.rt[None, :, None]
+    return rnd(h * w.rs[None, :, None] + w.rt[None, :, None])
 
 
 @torch.no_grad()
+def forward_reference(x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
+                      folded: FoldedDenoiser,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """B1's body (pallas_unet.py:157-204) at `compute_dtype`, returning
+    the float32 sum f + x0 before its cast to the output dtype."""
+    rnd = rounder(compute_dtype)
+    fw = compute_weights(folded, compute_dtype)
+    gw, jw = fw.gcn, fw.joint
+    x0 = rnd(x_ctn.float())
+    semb = rnd(silu_emb_en.float())
+    f = gcn_reference(x0, gw[0], semb, rnd)
+    f = gcn_reference(f, gw[1], semb, rnd)
+    d1 = f = gcn_reference(f, gw[2], semb, rnd)
+    f = joint_reference(f, jw[0], rnd)
+    f = gcn_reference(f, gw[3], semb, rnd)
+    d2 = f = gcn_reference(f, gw[4], semb, rnd)
+    f = joint_reference(f, jw[1], rnd)
+    f = gcn_reference(f, gw[5], semb, rnd)
+    f = gcn_reference(f, gw[6], semb, rnd)
+    f = rnd(joint_reference(f, jw[2], rnd) + d2)
+    f = gcn_reference(f, gw[7], semb, rnd)
+    f = gcn_reference(f, gw[8], semb, rnd)
+    f = rnd(joint_reference(f, jw[3], rnd) + d1)
+    f = gcn_reference(f, gw[9], semb, rnd)
+    f = gcn_reference(f, gw[10], semb, rnd)
+    return f + x0
+
+
 def denoise_reference(x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
-                      folded: FoldedDenoiser) -> torch.Tensor:
+                      folded: FoldedDenoiser,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """The plain PyTorch version of the kernel, layer by layer as B1's
-    body (pallas_unet.py:186-204)."""
-    gw, jw = folded.gcn, folded.joint
-    f = _gcn_reference(x_ctn, gw[0], silu_emb_en)
-    f = _gcn_reference(f, gw[1], silu_emb_en)
-    d1 = f = _gcn_reference(f, gw[2], silu_emb_en)
-    f = _joint_reference(f, jw[0])
-    f = _gcn_reference(f, gw[3], silu_emb_en)
-    d2 = f = _gcn_reference(f, gw[4], silu_emb_en)
-    f = _joint_reference(f, jw[1])
-    f = _gcn_reference(f, gw[5], silu_emb_en)
-    f = _gcn_reference(f, gw[6], silu_emb_en)
-    f = _joint_reference(f, jw[2]) + d2
-    f = _gcn_reference(f, gw[7], silu_emb_en)
-    f = _gcn_reference(f, gw[8], silu_emb_en)
-    f = _joint_reference(f, jw[3]) + d1
-    f = _gcn_reference(f, gw[9], silu_emb_en)
-    f = _gcn_reference(f, gw[10], silu_emb_en)
-    return f + x_ctn
+    body, eps in x_ctn's dtype (pallas_unet.py:203-204)."""
+    return forward_reference(x_ctn, silu_emb_en, folded,
+                             compute_dtype).to(x_ctn.dtype)
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: packing, plan, wrapper
+# The CUDA kernels' constants, op tables and shared-memory plans
 # ---------------------------------------------------------------------------
 
-# must match the enums in csrc/denoiser.cu (checked when the kernel loads)
-_H_NOPS, _H_CIN, _H_T, _H_TVA, _H_TVAP, _H_E, _H_X, _H_SEMB, _H_EMB, \
-    _H_FINAL, _H_LEN = range(11)
+# must match the enums in csrc/denoiser_body.cuh (checked when a kernel
+# library loads)
+_H_NOPS, _H_T, _H_E, _H_SEMB, _H_EMB, _H_FINAL_X, _H_ARENA, _H_NIN, \
+    _H_NOUT, _H_IO = range(10)
+MAX_IN, MAX_OUT = 2, 2               # activation tensors in / out per table
+_IO_LEN = 4                          # (C, TV, TVp, arena offset)
+_H_LEN = _H_IO + (MAX_IN + MAX_OUT) * _IO_LEN
 _O_FIELDS = ('kind', 'ci', 'co', 'tvi', 'tvip', 'tvo', 'tvop', 'in', 'g',
-             'out', 'skip', 'k', 'w', 'wr', 'bias', 'slope', 'we', 'eb',
+             'out', 'skip', 'k', 'w', 'wr', 'we', 'bias', 'slope', 'eb',
              'rs', 'rt')
-KERNEL_ROWS = 4                     # fold rows per block (kRows)
+KERNEL_ROWS = 4                     # fold rows per sub-tile (kRows)
 MAX_SMEM_BYTES = 232448             # dynamic shared memory a Hopper block may use
 
 
 @dataclass
 class KernelPlan:
-    consts: torch.Tensor             # (n,) float32, every folded constant
-    table: torch.Tensor              # (m,) int32, ops + offsets + smem plan
-    smem_bytes: int
+    mats: torch.Tensor               # (m,) folded matrices, compute dtype
+    vecs: torch.Tensor               # (v,) float32 biases, slopes, affines
+    table: torch.Tensor              # (t,) int32, ops + offsets + smem plan
+    arena: int                       # float4s of one sub-tile's arena
+    smem_bytes: int                  # dynamic shared memory per block
+
+    def to(self, device: torch.device) -> 'KernelPlan':
+        return KernelPlan(mats=self.mats.to(device),
+                          vecs=self.vecs.to(device),
+                          table=self.table.to(device), arena=self.arena,
+                          smem_bytes=self.smem_bytes)
 
 
-def _odd(n: int) -> int:
+def odd(n: int) -> int:
+    """T*V padded to an odd float4 stride (bank-conflict-free walks)."""
     return n | 1
 
 
@@ -232,8 +312,8 @@ def _pad4(n: int) -> int:
 
 
 class _Packer:
-    """Appends constants to one float32 buffer at 16-byte aligned offsets,
-    transposed to (K, M) with M zero-padded to a multiple of 4."""
+    """Appends constants to one float32 buffer at 4-element aligned
+    offsets (16 bytes in float32, 8 in bfloat16)."""
 
     def __init__(self):
         self.parts: List[np.ndarray] = []
@@ -249,141 +329,205 @@ class _Packer:
         return off
 
     def add_left(self, m: torch.Tensor) -> int:
-        """A left operator (M, K) stored as its (K, Mp) transpose."""
-        mat = m.detach().cpu().numpy()
+        """A left operator (M, K) stored as its (K, Mp) transpose, M
+        zero-padded to a multiple of 4."""
+        mat = m.detach().cpu().float().numpy()
         rows, cols = mat.shape
         t = np.zeros((cols, _pad4(rows)), np.float32)
         t[:, :rows] = mat.T
         return self.add(t)
 
     def vec(self, v: torch.Tensor) -> int:
-        return self.add(v.detach().cpu().numpy())
+        return self.add(v.detach().cpu().float().numpy())
+
+    def array(self) -> np.ndarray:
+        return np.concatenate(self.parts) if self.parts else \
+            np.zeros(0, np.float32)
 
 
-def pack_for_kernel(folded: FoldedDenoiser) -> KernelPlan:
-    """Lay the folded constants out for `csrc/denoiser.cu` and plan its
-    shared memory (offsets in float4 units; one float4 holds one element
-    for the kRows rows of a block)."""
-    p = _Packer()
-    t, c_in, e_dim = folded.n_frames, folded.c_in, folded.embedding_dim
+def pack_layers(folded: FoldedDenoiser
+                 ) -> Tuple[np.ndarray, np.ndarray, List[dict]]:
+    """The folded matrices and vectors as two float32 buffers, and B1's 15
+    op records (shapes and constant offsets; arena offsets unset) in B1's
+    order: p1a d1_0 d1_1 | down1 | d2_0 d2_1 | down2 | d3_0 d3_1 |
+    up3 (+d2) | u4_0 u4_1 | up2 (+d1) | u3_0 u3_1."""
+    mats, vecs = _Packer(), _Packer()
+    t = folded.n_frames
     jp = joint_pyramid(folded.n_joints)
     tva, tvb, tvc = t * jp['a'], t * jp['b'], t * jp['c']
-    gw, jw = folded.gcn, folded.joint
     tv_of_gcn = [tva, tva, tva, tvb, tvb, tvc, tvc, tvb, tvb, tva, tva]
     joint_tv = [(tva, tvb), (tvb, tvc), (tvc, tvb), (tvb, tva)]
-
     ops = []
-    for w, tv in zip(gw, tv_of_gcn):
+    for w, tv in zip(folded.gcn, tv_of_gcn):
         co, ci = w.w2.shape
         ops.append(dict(
-            kind=0, ci=ci, co=co, tvi=tv, tvip=_odd(tv), tvo=tv,
-            tvop=_odd(tv), k=p.add_left(w.k2), w=p.add_left(w.w2),
-            wr=-1 if w.wr2 is None else p.add_left(w.wr2),
-            bias=p.vec(w.bias), slope=p.add(np.float32([w.slope])),
-            we=p.add_left(w.we2), eb=p.vec(w.eb), rs=-1, rt=-1, skip=-1))
+            kind=0, ci=ci, co=co, tvi=tv, tvip=odd(tv), tvo=tv,
+            tvop=odd(tv), k=mats.add_left(w.k2), w=mats.add_left(w.w2),
+            wr=-1 if w.wr2 is None else mats.add_left(w.wr2),
+            we=mats.add_left(w.we2), bias=vecs.vec(w.bias),
+            slope=vecs.add(np.float32([w.slope])), eb=vecs.vec(w.eb),
+            rs=-1, rt=-1, skip=-1))
     joints = []
-    for w, (tvi, tvo) in zip(jw, joint_tv):
+    for w, (tvi, tvo) in zip(folded.joint, joint_tv):
         joints.append(dict(
-            kind=1, tvi=tvi, tvip=_odd(tvi), tvo=tvo, tvop=_odd(tvo),
-            k=p.add_left(w.d2), rs=p.vec(w.rs), rt=p.vec(w.rt), w=-1, wr=-1,
-            bias=-1, slope=-1, we=-1, eb=-1, skip=-1))
-    # B1's order: p1a d1_0 d1_1 | down1 | d2_0 d2_1 | down2 | d3_0 d3_1 |
-    # up3 (+d2) | u4_0 u4_1 | up2 (+d1) | u3_0 u3_1
+            kind=1, tvi=tvi, tvip=odd(tvi), tvo=tvo, tvop=odd(tvo),
+            k=mats.add_left(w.d2), rs=vecs.vec(w.rs), rt=vecs.vec(w.rt),
+            w=-1, wr=-1, we=-1, bias=-1, slope=-1, eb=-1, skip=-1))
     seq = (ops[0:3] + [joints[0]] + ops[3:5] + [joints[1]] + ops[5:7]
            + [joints[2]] + ops[7:9] + [joints[3]] + ops[9:11])
     for i, o in enumerate(seq):      # a joint keeps its channel count
         if o['kind'] == 1:
             o['ci'] = o['co'] = seq[i - 1]['co']
-    d1_op, d2_op = seq[2], seq[5]
+    return mats.array(), vecs.array(), seq
 
-    # fixed regions, then a work area whose ends alternate as the layer
-    # input / output; d1_1 and d2_1 write into the skip buffers directly
-    size_x = c_in * _odd(tva)
-    cmax = max(o['co'] for o in seq if o['kind'] == 0)
-    size_d1 = d1_op['co'] * d1_op['tvop']
-    size_d2 = d2_op['co'] * d2_op['tvop']
-    off_x = 0
-    off_semb = off_x + size_x
-    off_emb = off_semb + e_dim
-    off_d1 = off_emb + cmax
-    off_d2 = off_d1 + size_d1
-    off_work = off_d2 + size_d2
+
+def plan_arena(ops: List[dict], regions: Sequence[Tuple[str, int]],
+                first_in: Optional[str] = None,
+                dst: Optional[Dict[int, str]] = None,
+                skip: Optional[Dict[int, str]] = None
+                ) -> Tuple[Dict[str, int], int]:
+    """Lay out one sub-tile's arena (offsets in float4s) for `ops`.
+
+    `regions` are (name, size) regions that stay put for the whole run,
+    laid out first in that order; they include 'semb' and 'emb'.  After
+    them comes a work area whose two ends alternate as layer input and
+    output: a layer's graph-mixed intermediate sits next to its input (at
+    the left end when the input is a fixed region) and its output goes to
+    the other end.  `first_in` names the fixed region that holds the first
+    op's input, or None for the work area's left end; `dst` maps op index
+    -> the fixed region that op writes (a skip saved for later), `skip`
+    op index -> the fixed region a joint op adds.  Sets every op's 'in',
+    'g', 'out' and 'skip'; returns the regions' offsets and the arena's
+    size."""
+    dst, skip = dst or {}, skip or {}
+    off: Dict[str, int] = {}
+    total = 0
+    for name, size in regions:
+        off[name] = total
+        total += size
+    off_work = total
 
     def sizes(o):
         return o['ci'] * o['tvip'], o['ci'] * o['tvop'], o['co'] * o['tvop']
 
-    # pass 1: which end each buffer sits at, and the work area's size.  A
-    # layer's graph-mixed intermediate sits next to its input (at L when
-    # the input is a fixed region); its output goes to the other end.
-    where = 'x'                      # x / d1 / d2 (fixed) or L / R (work)
+    # pass 1: which end each buffer sits at, and the work area's size
+    where = first_in or 'L'          # a fixed region, or L / R (work)
     layout = []
     work = 0
-    for o in seq:
+    for i, o in enumerate(ops):
         s_in, s_g, s_out = sizes(o)
         in_work = where in ('L', 'R')
-        to_skip = 'd1' if o is d1_op else 'd2' if o is d2_op else None
+        to_fixed = dst.get(i)
         if o['kind'] == 0:
             g_side = 'R' if where == 'R' else 'L'
-            out_side = to_skip or ('L' if g_side == 'R' else 'R')
+            out_side = to_fixed or ('L' if g_side == 'R' else 'R')
             used = (s_in if in_work else 0) + s_g + \
-                (0 if to_skip else s_out)
+                (0 if to_fixed else s_out)
         else:
             g_side = None
-            out_side = 'R' if where == 'L' else 'L'
-            used = (s_in if in_work else 0) + s_out
+            out_side = to_fixed or ('R' if where == 'L' else 'L')
+            used = (s_in if in_work else 0) + (0 if to_fixed else s_out)
         work = max(work, used)
         layout.append((where, g_side, out_side))
         where = out_side
 
     def at(side, size, inner=0):
         """Offset of a buffer of `size` at one end of the work area,
-        `inner` floats away from that end."""
+        `inner` float4s away from that end."""
         if side == 'L':
             return off_work + inner
         return off_work + work - inner - size
 
-    fixed = {'x': off_x, 'd1': off_d1, 'd2': off_d2}
-    for o, (src, g_side, dst) in zip(seq, layout):
+    for i, (o, (src, g_side, out_side)) in enumerate(zip(ops, layout)):
         s_in, s_g, s_out = sizes(o)
-        o['in'] = fixed[src] if src in fixed else at(src, s_in)
-        o['out'] = fixed[dst] if dst in fixed else at(dst, s_out)
+        o['in'] = off[src] if src in off else at(src, s_in)
+        o['out'] = off[out_side] if out_side in off else at(out_side, s_out)
         o['g'] = (-1 if g_side is None else
-                  at(g_side, s_g, 0 if src in fixed else s_in))
-    seq[9]['skip'] = off_d2          # up3 (+ d2)
-    seq[12]['skip'] = off_d1         # up2 (+ d1)
+                  at(g_side, s_g, 0 if src in off else s_in))
+        o['skip'] = off[skip[i]] if i in skip else -1
+    return off, off_work + work
 
-    total = off_work + work
-    smem_bytes = total * 16
+
+def kernel_table(ops: List[dict], folded: FoldedDenoiser,
+                 off: Dict[str, int], arena: int,
+                 ins: Sequence[Tuple[int, int, int]],
+                 outs: Sequence[Tuple[int, int, int]],
+                 final_x: int) -> List[int]:
+    """The int32 table a kernel reads: header, I/O records ((C, TV, arena
+    offset) of each input and output tensor) and op records."""
+    header = [0] * _H_LEN
+    header[_H_NOPS] = len(ops)
+    header[_H_T] = folded.n_frames
+    header[_H_E] = folded.embedding_dim
+    header[_H_SEMB] = off['semb']
+    header[_H_EMB] = off['emb']
+    header[_H_FINAL_X] = final_x
+    header[_H_ARENA] = arena
+    header[_H_NIN] = len(ins)
+    header[_H_NOUT] = len(outs)
+    for slot, (c, tv, o) in list(enumerate(ins)) + \
+            [(MAX_IN + i, io) for i, io in enumerate(outs)]:
+        base = _H_IO + slot * _IO_LEN
+        header[base:base + _IO_LEN] = [c, tv, odd(tv), o]
+    return header + [int(o[k]) for o in ops for k in _O_FIELDS]
+
+
+def constants_as(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A packed float32 buffer at a kernel's storage dtype (bfloat16
+    rounds to nearest even)."""
+    return torch.from_numpy(a).to(dtype)
+
+
+def check_smem(what: str, smem_bytes: int) -> None:
     if smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(
-            f'the denoiser kernel needs {smem_bytes} bytes of shared memory '
+            f'the {what} kernel needs {smem_bytes} bytes of shared memory '
             f'for these shapes; a Hopper block has {MAX_SMEM_BYTES}')
-    header = [0] * _H_LEN
-    header[_H_NOPS] = len(seq)
-    header[_H_CIN] = c_in
-    header[_H_T] = t
-    header[_H_TVA] = tva
-    header[_H_TVAP] = _odd(tva)
-    header[_H_E] = e_dim
-    header[_H_X] = off_x
-    header[_H_SEMB] = off_semb
-    header[_H_EMB] = off_emb
-    header[_H_FINAL] = seq[-1]['out']
-    table = header + [int(o[k]) for o in seq for k in _O_FIELDS]
-    return KernelPlan(consts=torch.from_numpy(np.concatenate(p.parts)),
+
+
+def pack_for_kernel(folded: FoldedDenoiser,
+                    dtype: torch.dtype = torch.float32) -> KernelPlan:
+    """Lay the folded constants out for `csrc/denoiser.cu` at `dtype`
+    (the matrices at `dtype`, the vectors float32) and plan its shared
+    memory (offsets in float4 units; one float4 holds one element for the
+    kRows rows of a block): x, silu_emb, the layer embedding, the skips d1
+    and d2 (d1_1 and d2_1 write straight into them), then the work area."""
+    rounder(dtype)                   # float32 or bfloat16 only
+    mats, vecs, ops = pack_layers(folded)
+    c_in, e_dim = folded.c_in, folded.embedding_dim
+    tva = ops[0]['tvi']
+    cmax = max(o['co'] for o in ops if o['kind'] == 0)
+    regions = [('x', c_in * odd(tva)), ('semb', e_dim), ('emb', cmax),
+               ('d1', ops[2]['co'] * ops[2]['tvop']),
+               ('d2', ops[5]['co'] * ops[5]['tvop'])]
+    off, arena = plan_arena(ops, regions, first_in='x',
+                             dst={2: 'd1', 5: 'd2'}, skip={9: 'd2', 12: 'd1'})
+    smem_bytes = arena * 16
+    check_smem('denoiser', smem_bytes)
+    table = kernel_table(ops, folded, off, arena,
+                         ins=[(c_in, tva, off['x'])],
+                         outs=[(c_in, tva, ops[-1]['out'])],
+                         final_x=off['x'])
+    return KernelPlan(mats=constants_as(mats, dtype),
+                      vecs=torch.from_numpy(vecs),
                       table=torch.tensor(table, dtype=torch.int32),
-                      smem_bytes=smem_bytes)
+                      arena=arena, smem_bytes=smem_bytes)
 
 
-def kernel_plan(folded: FoldedDenoiser, device: torch.device) -> KernelPlan:
-    """The packed constants on `device`, built once per device."""
+def cached_plan(folded: FoldedDenoiser, key: tuple, device: torch.device,
+                build: Callable[[], object]):
+    """`build()` moved to `device`, built once per (key, device)."""
     device = torch.device(device)
-    if device not in folded._packed:
-        plan = pack_for_kernel(folded)
-        folded._packed[device] = KernelPlan(
-            consts=plan.consts.to(device), table=plan.table.to(device),
-            smem_bytes=plan.smem_bytes)
-    return folded._packed[device]
+    if (key, device) not in folded._packed:
+        folded._packed[(key, device)] = build().to(device)
+    return folded._packed[(key, device)]
+
+
+def kernel_plan(folded: FoldedDenoiser, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> KernelPlan:
+    """B1's packed constants and table on `device`, built once."""
+    return cached_plan(folded, ('denoiser', dtype), device,
+                       lambda: pack_for_kernel(folded, dtype))
 
 
 def denoiser_flops_per_row(folded: FoldedDenoiser) -> int:
@@ -405,79 +549,118 @@ def denoiser_flops_per_row(folded: FoldedDenoiser) -> int:
     t = folded.n_frames
     for j, c, skip in zip(folded.joint, chans, skips):
         tvo, tvi = j.d2.shape
-        ops +=2 * c * t * (tvo // t) * (tvi // t) + \
+        ops += 2 * c * t * (tvo // t) * (tvi // t) + \
             (3 if skip else 2) * c * tvo
     ops += folded.c_in * folded.gcn[0].k2.shape[0]  # + x
     return ops
 
 
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+def check_fold_inputs(x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
+                      folded: FoldedDenoiser, x_dtype: torch.dtype,
+                      semb_dtype: torch.dtype) -> int:
+    """Raise unless x_ctn (C_in, T*V, N) and silu_emb_en (E, N) are
+    contiguous CUDA tensors of the given dtypes on one device; returns
+    N."""
+    c_in = folded.c_in
+    tva = folded.gcn[0].k2.shape[0]
+    e_dim = folded.embedding_dim
+    for name, a, dt in (('x_ctn', x_ctn, x_dtype),
+                        ('silu_emb_en', silu_emb_en, semb_dtype)):
+        if a.device.type != 'cuda':
+            raise ValueError(f'{name} must be a CUDA tensor')
+        if a.dtype != dt:
+            raise ValueError(f'{name} must be {str(dt)[6:]}, got {a.dtype}')
+        if not a.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if x_ctn.dim() != 3 or tuple(x_ctn.shape[:2]) != (c_in, tva):
+        raise ValueError(f'x_ctn must be ({c_in}, {tva}, N), got '
+                         f'{tuple(x_ctn.shape)}')
+    n = x_ctn.shape[2]
+    if tuple(silu_emb_en.shape) != (e_dim, n):
+        raise ValueError(f'silu_emb_en must be ({e_dim}, {n}), got '
+                         f'{tuple(silu_emb_en.shape)}')
+    if silu_emb_en.device != x_ctn.device:
+        raise ValueError('x_ctn and silu_emb_en are on different devices')
+    cmax = max(w.w2.shape[0] * w.k2.shape[0] for w in folded.gcn)
+    if n >= 2 ** 31 // max(cmax, e_dim):
+        raise ValueError(f'N = {n} overflows the kernel\'s int indexing')
+    return n
+
+
+def load_library(source: str, prefix: str, checks: Dict[str, int]):
+    """Build (at first use) and load `csrc/<source>`, and raise unless each
+    `<prefix>_<name>()` of the library returns the value the host packs
+    for (the table format, the rows per sub-tile)."""
+    from mocodad_tpu_torch.ops.build import load
+    lib = load(source)
+    for name, want in checks.items():
+        get = getattr(lib, f'{prefix}_{name}')
+        get.argtypes, get.restype = [], ctypes.c_int
+        if get() != want:
+            raise RuntimeError(f'{source} reads {get()} for {name}; the '
+                               f'host packs for {want}')
+    return lib
+
+
+def bind(lib, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry point `symbol`: `n_ptrs` pointers, `n_ints` ints, then
+    the stream; returns the CUDA error code."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 class DenoiserKernel:
-    """Wrapper of `csrc/denoiser.cu`.  `launches` counts the kernel
-    launches this process made through it, and nothing else."""
+    """Wrapper of `csrc/denoiser.cu` at one compute dtype: float32 x and
+    eps, or bfloat16 x and eps (silu_emb float32 either way).  `launches`
+    counts the kernel launches this process made through it, and nothing
+    else."""
 
     source = 'denoiser.cu'
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
         self.launches = 0
         self._fn = None
+
+    @property
+    def symbol(self) -> str:
+        suffix = {torch.float32: 'f32', torch.bfloat16: 'bf16'}[self.dtype]
+        return f'mocodad_denoiser_launch_{suffix}'
 
     def load(self):
         """Build (at first use) and bind the C entry point."""
         if self._fn is None:
-            from mocodad_tpu_torch.ops.build import load
-            lib = load(self.source)
-            for what, sym, want in (
-                    ('rows per block', 'mocodad_denoiser_rows_per_block',
-                     KERNEL_ROWS),
-                    ('table header fields', 'mocodad_denoiser_header_len',
-                     _H_LEN),
-                    ('fields per op record', 'mocodad_denoiser_op_len',
-                     len(_O_FIELDS))):
-                get = getattr(lib, sym)
-                get.argtypes, get.restype = [], ctypes.c_int
-                if get() != want:
-                    raise RuntimeError(f'{self.source} reads {get()} {what}; '
-                                       f'pack_for_kernel writes {want}')
-            fn = lib.mocodad_denoiser_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            lib = load_library(self.source, 'mocodad_denoiser', {
+                'rows_per_block': KERNEL_ROWS, 'header_len': _H_LEN,
+                'op_len': len(_O_FIELDS)})
+            self._fn = bind(lib, self.symbol, 6, 2)
         return self._fn
 
     def __call__(self, x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
                  folded: FoldedDenoiser) -> torch.Tensor:
-        c_in = folded.c_in
-        tva = folded.gcn[0].k2.shape[0]
-        e_dim = folded.embedding_dim
-        for name, a in (('x_ctn', x_ctn), ('silu_emb_en', silu_emb_en)):
-            if a.device.type != 'cuda':
-                raise ValueError(f'{name} must be a CUDA tensor')
-            if a.dtype != torch.float32:
-                raise ValueError(f'{name} must be float32, got {a.dtype}')
-            if not a.is_contiguous():
-                raise ValueError(f'{name} must be contiguous')
-        if x_ctn.dim() != 3 or tuple(x_ctn.shape[:2]) != (c_in, tva):
-            raise ValueError(f'x_ctn must be ({c_in}, {tva}, N), got '
-                             f'{tuple(x_ctn.shape)}')
-        n = x_ctn.shape[2]
-        if tuple(silu_emb_en.shape) != (e_dim, n):
-            raise ValueError(f'silu_emb_en must be ({e_dim}, {n}), got '
-                             f'{tuple(silu_emb_en.shape)}')
-        if silu_emb_en.device != x_ctn.device:
-            raise ValueError('x_ctn and silu_emb_en are on different devices')
-        if n >= 2 ** 31 // max(c_in * tva, e_dim):
-            raise ValueError(f'N = {n} overflows the kernel\'s int indexing')
+        n = check_fold_inputs(x_ctn, silu_emb_en, folded, self.dtype,
+                              torch.float32)
         out = torch.empty_like(x_ctn)
         if n == 0:
             return out
-        plan = kernel_plan(folded, x_ctn.device)
+        plan = kernel_plan(folded, x_ctn.device, self.dtype)
         fn = self.load()
         with torch.cuda.device(x_ctn.device):
-            stream = torch.cuda.current_stream(x_ctn.device).cuda_stream
             err = fn(x_ctn.data_ptr(), silu_emb_en.data_ptr(),
-                     plan.consts.data_ptr(), plan.table.data_ptr(),
-                     out.data_ptr(), n, plan.smem_bytes, stream)
+                     plan.mats.data_ptr(), plan.vecs.data_ptr(),
+                     plan.table.data_ptr(), out.data_ptr(), n,
+                     plan.smem_bytes, current_stream(x_ctn.device))
         if err != 0:
             raise RuntimeError(f'denoiser kernel launch failed: CUDA error '
                                f'{err}')
@@ -485,15 +668,20 @@ class DenoiserKernel:
         return out
 
 
-DENOISER = DenoiserKernel()
+DENOISER = DenoiserKernel(torch.float32)
+DENOISER_BF16 = DenoiserKernel(torch.bfloat16)
 
 
 def denoise(x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
             folded: FoldedDenoiser) -> torch.Tensor:
-    """eps for a (C_in, T*V, N) fold: the plain version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
+    """eps for a (C_in, T*V, N) fold, computed at x_ctn's dtype (float32,
+    or bfloat16 with float32 accumulation): the plain version for a CPU
+    tensor, the CUDA kernel for a CUDA tensor."""
     if x_ctn.device.type == 'cpu':
-        return denoise_reference(x_ctn, silu_emb_en, folded)
+        return denoise_reference(x_ctn, silu_emb_en, folded,
+                                 compute_dtype=x_ctn.dtype)
     if x_ctn.device.type == 'cuda':
+        if x_ctn.dtype == torch.bfloat16:
+            return DENOISER_BF16(x_ctn, silu_emb_en, folded)
         return DENOISER(x_ctn, silu_emb_en, folded)
     raise ValueError(f'no denoiser for device {x_ctn.device}')

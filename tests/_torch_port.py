@@ -83,6 +83,20 @@ def seeded_tree(shapes, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, dict(shapes))
 
 
+def seeded_variables(model: JaxModel, seed: int = 0):
+    """A JAX model's variables tree filled by `seeded_tree`: BatchNorm
+    statistics away from identity without a training step."""
+    shapes = jax.eval_shape(model.init_variables, jax.random.key(0))
+    return seeded_tree(shapes, seed=seed)
+
+
+def bf16_stats(got, want):
+    """(max |got - want| / max |want|, mean |got - want| / mean |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    return err.max() / np.abs(want).max(), err.mean() / np.abs(want).mean()
+
+
 def sub_state_dict(variables, root: str, prefix: str, name=None):
     """The port's state dict of one submodule, from the `variables` of a
     flax module placed at params[root] (or params[root][name]); keys are

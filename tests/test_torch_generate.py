@@ -82,7 +82,10 @@ def test_generate_draws_from_the_generator(models):
         tm.generate(net, data)
 
 
-@pytest.mark.parametrize('extras', [{'eval_dtype': 'bfloat16'},
+# the 'bf16' case keeps its id from before bfloat16 was ported: it now
+# holds an eval_dtype the port does not take (the JAX package rejects
+# float16 too, mocodad_tpu/models/mocodad.py:154-156)
+@pytest.mark.parametrize('extras', [{'eval_dtype': 'float16'},
                                     {'sampler': 'ddim'},
                                     {'antithetic': True}],
                          ids=['bf16', 'ddim', 'antithetic'])

@@ -33,6 +33,10 @@ def test_import_leaves_jax_out():
         'import sys\n'
         'import mocodad_tpu_torch, mocodad_tpu_torch.training.inference\n'
         'import mocodad_tpu_torch.ops.pallas_unet, mocodad_tpu_torch.data\n'
+        'import mocodad_tpu_torch.ops.grouped_unet\n'
+        'import mocodad_tpu_torch.ops.dma_unet\n'
+        'import mocodad_tpu_torch.tools.perf.probe_grouped_pallas\n'
+        'import mocodad_tpu_torch.tools.perf.probe_dma_pipeline\n'
         'import mocodad_tpu_torch.eval, mocodad_tpu_torch.utils.tensors\n'
         'import eval_MoCoDAD_torch, chip_smoke\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '

@@ -1,4 +1,6 @@
-"""The CUDA denoiser kernel on the card, against its plain version.
+"""The CUDA denoiser kernels on the card, against their plain versions:
+B1 in float32 and bfloat16, B2 (grouped, bfloat16) and B3 (DMA-pipelined,
+float32 and bfloat16).
 
 These tests need a CUDA device and skip without one (the kernel has no
 CPU mode).  They import neither JAX nor the JAX package, so they also run
@@ -14,6 +16,7 @@ import torch
 from mocodad_tpu_torch.config import flagship_config
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.models.mocodad import MoCoDADModel, seeded_state
+from mocodad_tpu_torch.ops import dma_unet as D, grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
 
 pytestmark = pytest.mark.gpu
@@ -21,6 +24,13 @@ pytestmark = pytest.mark.gpu
 # float32 on both sides; the kernel sums in another order than cuBLAS and
 # contracts multiply-adds into FMAs
 RTOL, ATOL = 1e-4, 1e-5
+# bfloat16 on both sides at the same rounding points: a sum taken in
+# another order can round the other way (2^-8 relative) and later layers
+# carry the flip.  Max |diff| within 3 % of max |want|; mean |diff| within
+# 0.2 % of mean |want| (chip_smoke.py holds N = 51,200 to 0.1 %; a single
+# row averages over too few elements for that)
+BF16_MAX_REL, BF16_MEAN_REL = 3e-2, 2e-3
+NS = [1, 8, 1031, 4096]
 
 
 @pytest.fixture(scope='module')
@@ -75,5 +85,99 @@ def test_generate_runs_through_the_kernel(folded):
     sel, loss = model.generate(net, data,
                                torch.Generator('cuda').manual_seed(4))
     assert P.DENOISER.launches == before + 9
+    assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
+    assert np.isfinite(loss.cpu().numpy()).all()
+
+
+def _bf16_close(got, want):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert float(diff.max()) <= BF16_MAX_REL * float(want.abs().max())
+    assert float(diff.mean()) <= BF16_MEAN_REL * float(want.abs().mean())
+
+
+@pytest.mark.parametrize('n', NS)
+def test_bf16_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 1)
+    xb = x.bfloat16()
+    before = (P.DENOISER.launches, P.DENOISER_BF16.launches)
+    got = P.denoise(xb, semb, folded)
+    assert (P.DENOISER.launches, P.DENOISER_BF16.launches) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('n', NS)
+def test_grouped_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 2)
+    xb, sb = x.bfloat16(), semb.bfloat16()
+    before = G.GROUPED.launches
+    got = G.denoise_grouped(xb, sb, folded)
+    assert G.GROUPED.launches == before + 5
+    assert got.dtype == torch.bfloat16
+    want = G.grouped_reference(xb, sb, folded)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('n', NS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_dma_kernel_matches_plain_version(folded, dtype, n):
+    x, semb = _inputs(n, seed=n + 3)
+    kernel = {torch.float32: D.DMA_PIPELINED_F32,
+              torch.bfloat16: D.DMA_PIPELINED}[dtype]
+    before = kernel.launches
+    got = D.denoise_dma(x, semb, folded, compute_dtype=dtype)
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.float32
+    want = D.dma_reference(x, semb, folded, dtype)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        # B3 runs B1's table: the same sums in the same order
+        torch.testing.assert_close(got, P.DENOISER(x, semb, folded),
+                                   rtol=0, atol=0)
+    else:
+        _bf16_close(got, want)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(folded):
+    x, semb = _inputs(16, seed=2)
+    xb, sb = x.bfloat16(), semb.bfloat16()
+    with pytest.raises(ValueError, match='bfloat16'):
+        P.DENOISER_BF16(x, semb, folded)
+    with pytest.raises(ValueError, match='silu_emb_en must be float32'):
+        P.DENOISER_BF16(xb, sb, folded)
+    with pytest.raises(ValueError, match='silu_emb_en must be bfloat16'):
+        G.GROUPED(xb, semb, folded)
+    with pytest.raises(ValueError, match=r'\(2, 51, N\)'):
+        G.GROUPED(xb[:, :50].contiguous(), sb, folded)
+    with pytest.raises(ValueError, match='x_ctn must be float32'):
+        D.DMA_PIPELINED(xb, semb, folded)
+    with pytest.raises(ValueError, match='contiguous'):
+        D.DMA_PIPELINED_F32(x.transpose(0, 1).contiguous().transpose(0, 1),
+                            semb, folded)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        D.DMA_PIPELINED(x.cpu(), semb.cpu(), folded)
+
+
+def test_generate_bf16_runs_through_the_bf16_kernel(folded):
+    cfg = flagship_config(n_generated_samples=4)
+    cfg.extras['eval_dtype'] = 'bfloat16'
+    model = MoCoDADModel(cfg)
+    net = seeded_state(model.build_net(), seed=0).to('cuda').eval()
+    data = torch.randn((8, 2, 6, 17), device='cuda',
+                       generator=torch.Generator('cuda').manual_seed(3))
+    before = (P.DENOISER.launches, P.DENOISER_BF16.launches)
+    sel, loss = model.generate(net, data,
+                               torch.Generator('cuda').manual_seed(4))
+    assert (P.DENOISER.launches, P.DENOISER_BF16.launches) == \
+        (before[0], before[1] + 9)
+    assert sel.dtype == loss.dtype == torch.float32
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()

@@ -4,9 +4,9 @@
 
 Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build     every kernel source (csrc/denoiser.cu, denoiser_grouped.cu,
-               denoiser_dma.cu) with nvcc for sm_90a, one nvcc each, all
-               started together;
+  2. build     every kernel source (csrc/denoiser.cu, denoiser_tc.cu,
+               denoiser_grouped.cu, denoiser_dma.cu) with nvcc for sm_90a,
+               one nvcc each, all started together;
   3. check     B1 in float32 against its plain PyTorch version on the card,
                at N = 51,200 (the flagship fold, 1024 windows x 50 samples)
                and at a ragged N;
@@ -23,17 +23,22 @@ Phases, each printing one line:
                denoiser's device time, the rest of the device time, and the
                device's idle share of the pass;
   8. check_bf16, check_grouped, check_dma
-               B1 at bfloat16, B2 (bfloat16) and B3 (float32 and bfloat16)
-               against their plain versions at both N;
+               B1 at bfloat16 (the tensor-core kernel, and the FMA design
+               kept as its yardstick), B2 (bfloat16) and B3 (float32 and
+               bfloat16) against their plain versions at both N;
   9. time_bf16, time_grouped, time_dma
                ms per forward at N = 51,200 of each, its plain version's,
-               its bound, and B1's at the same dtype in the same run; B2
-               and B3 are timed by their probe scripts
+               its bound, and B1's at the same dtype in the same run
+               (time_bf16 also the FMA design's, fma_bf16_ms); B2 and B3
+               are timed by their probe scripts
                (mocodad_tpu_torch/tools/perf/), whose runs are those
-               kernels' paths and count their launches;
- 10. main_bf16 the main path again with `eval_dtype: bfloat16`;
+               kernels' paths and count their launches, beside the FMA
+               design of B1 that they vary;
+ 10. main_bf16 the main path again with `eval_dtype: bfloat16`, through
+               the tensor-core kernel only;
  11. agree_bf16 that path through the kernel and through the plain version
-               on the same noise, and its distance from the float32 path.
+               on the same noise, and its distance from the float32 path;
+ 12. profile_bf16 one more bfloat16 pass under torch.profiler, as 7.
 Then one JSON line with each kernel's numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
@@ -96,8 +101,8 @@ H100_SXM = 'H100 80GB HBM3'
 H100_SXM_PEAKS = (67e12, 3.35e12)
 H100_SXM_BF16_PEAK = 989e12
 
-KERNELS = (P.DENOISER, P.DENOISER_BF16, G.GROUPED, D.DMA_PIPELINED_F32,
-           D.DMA_PIPELINED)
+KERNELS = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA, G.GROUPED,
+           D.DMA_PIPELINED_F32, D.DMA_PIPELINED)
 CSRC = 'mocodad_tpu_torch/csrc/'
 B1 = 'mocodad_tpu/ops/pallas_unet.py:105'
 
@@ -189,6 +194,22 @@ def device_noise(n_steps: int, n_coords: int, tc: int, v: int):
                          device='cuda')
         return x0, zs
     return fn
+
+
+def profile_phase(name: str, fn) -> None:
+    """Print where the time of one pass `fn() -> (result, host seconds)`
+    goes: the denoiser kernel's device ms, the other device ms, the
+    device's idle share of the pass, and the largest other activities."""
+    seconds, kernel_dev_ms, other_dev_ms, top = device_time_split(fn)
+    wall_ms = seconds * 1e3
+    measured = kernel_dev_ms > 0
+    phase(name, seconds=f'{seconds:.3f}',
+          denoiser_device_ms=f'{kernel_dev_ms:.1f}' if measured
+          else 'not measured (no device events)',
+          other_device_ms=f'{other_dev_ms:.1f}',
+          idle_share=(f'{1 - (kernel_dev_ms + other_dev_ms) / wall_ms:.3f}'
+                      if measured else 'not measured'),
+          top_other=json.dumps([[k, round(v, 2)] for k, v in top]))
 
 
 def device_time_split(fn):
@@ -345,16 +366,7 @@ def main() -> int:
 
         # 7. where the time goes: one more pass through the kernel, under
         # the profiler (its own cost inflates this pass's host seconds)
-        seconds, kernel_dev_ms, other_dev_ms, top = device_time_split(run)
-        wall_ms = seconds * 1e3
-        measured = kernel_dev_ms > 0
-        phase('profile', seconds=f'{seconds:.3f}',
-              denoiser_device_ms=f'{kernel_dev_ms:.1f}' if measured
-              else 'not measured (no device events)',
-              other_device_ms=f'{other_dev_ms:.1f}',
-              idle_share=(f'{1 - (kernel_dev_ms + other_dev_ms) / wall_ms:.3f}'
-                          if measured else 'not measured'),
-              top_other=json.dumps([[k, round(v, 2)] for k, v in top]))
+        profile_phase('profile', run)
         entries['denoiser'] = dict(
             dtype='float32', path='main, eval_dtype float32',
             source=CSRC + 'denoiser.cu', replaces=B1, launches=launches,
@@ -369,6 +381,10 @@ def main() -> int:
             cases = (
                 ('check_bf16', 'denoiser_bf16',
                  lambda: P.DENOISER_BF16(xb, semb, folded),
+                 lambda: P.denoise_reference(xb, semb, folded,
+                                             compute_dtype=torch.bfloat16)),
+                ('check_bf16', 'denoiser_bf16_fma',
+                 lambda: P.DENOISER_BF16_FMA(xb, semb, folded),
                  lambda: P.denoise_reference(xb, semb, folded,
                                              compute_dtype=torch.bfloat16)),
                 ('check_grouped', 'denoiser_grouped',
@@ -411,17 +427,25 @@ def main() -> int:
             const_bytes(plan16.mats, plan16.vecs)
         b_ms, b_by = bound(flops, bf16_bytes, bf16_peak, bytes_peak)
         bf_ms = time_ms(lambda: P.DENOISER_BF16(xb, semb, folded))
+        fma_ms = time_ms(lambda: P.DENOISER_BF16_FMA(xb, semb, folded))
         bf_plain = time_ms(lambda: P.denoise_reference(
             xb, semb, folded, compute_dtype=torch.bfloat16))
         phase('time_bf16', n=N_FOLD, kernel_ms=f'{bf_ms:.4f}',
-              plain_ms=f'{bf_plain:.4f}', bound_ms=f'{b_ms:.4f}',
-              bound_by=b_by, mbytes=f'{bf16_bytes / 1e6:.2f}',
+              fma_bf16_ms=f'{fma_ms:.4f}', plain_ms=f'{bf_plain:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=b_by,
+              bound_share=f'{b_ms / bf_ms:.4f}',
+              mbytes=f'{bf16_bytes / 1e6:.2f}',
               b1_f32_ms=f'{kernel_ms:.4f}',
               kernel_tflops=f'{flops / bf_ms / 1e9:.2f}', card=repr(card))
         entries['denoiser_bf16'] = dict(
             dtype='bfloat16', path='main, eval_dtype bfloat16',
-            source=CSRC + 'denoiser.cu', replaces=B1,
+            source=CSRC + 'denoiser_tc.cu', replaces=B1,
             max_abs_err=bf16_errs[('denoiser_bf16', N_FOLD)], ms=bf_ms,
+            plain_ms=bf_plain, bound_ms=b_ms, bound_by=b_by)
+        entries['denoiser_bf16_fma'] = dict(
+            dtype='bfloat16', path='yardstick of denoiser_bf16, no main path',
+            source=CSRC + 'denoiser.cu', replaces=B1,
+            max_abs_err=bf16_errs[('denoiser_bf16_fma', N_FOLD)], ms=fma_ms,
             plain_ms=bf_plain, bound_ms=b_ms, bound_by=b_by)
 
         reset_launches()
@@ -434,7 +458,7 @@ def main() -> int:
         inter = G.intermediate_bytes(folded, N_FOLD)
         phase('time_grouped', n=N_FOLD, kernel_ms=f'{pr["ms"]:.4f}',
               plain_ms=f'{g_plain:.4f}', bound_ms=f'{gb_ms:.4f}',
-              bound_by=gb_by, b1_bf16_ms=f'{pr["b1_ms"]:.4f}',
+              bound_by=gb_by, b1_bf16_fma_ms=f'{pr["b1_ms"]:.4f}',
               probe_launches=g_launches, nsub=pr['nsub'], card=repr(card))
         phase('time_grouped', intermediate_mbytes=f'{inter / 1e6:.2f}',
               intermediate_ms_at_peak=f'{inter / bytes_peak * 1e3:.4f}')
@@ -465,7 +489,8 @@ def main() -> int:
             phase('time_dma', kernel=key, n=N_FOLD,
                   kernel_ms=f'{pr["ms"]:.4f}', plain_ms=f'{d_plain:.4f}',
                   bound_ms=f'{db_ms:.4f}', bound_by=db_by,
-                  b1_ms=f'{pr["b1_ms"]:.4f}', probe_launches=d_launches,
+                  b1_fma_ms=f'{pr["b1_ms"]:.4f}',
+                  probe_launches=d_launches,
                   card=repr(card))
             if d_launches == 0:
                 raise RuntimeError(f'{key} probe path launched nothing')
@@ -483,14 +508,18 @@ def main() -> int:
         launches16 = counts[P.DENOISER_BF16]
         phase('main_bf16', windows=len(ds16), batches=n_batches,
               launches=launches16, float32_launches=counts[P.DENOISER],
+              fma_launches=counts[P.DENOISER_BF16_FMA],
               seconds=f'{seconds:.3f}',
               windows_per_s=f'{len(ds16) / seconds:.1f}', auc=f'{auc:.6f}')
         if launches16 != 9 * n_batches or \
                 sum(counts.values()) != launches16:
             raise RuntimeError(f'kernel launches on the bfloat16 main path: '
                                f'{launch_counts()}, expected 9 x '
-                               f'{n_batches} of the bfloat16 kernel only')
+                               f'{n_batches} of the tensor-core bfloat16 '
+                               f'kernel only')
         entries['denoiser_bf16']['launches'] = launches16
+        entries['denoiser_bf16_fma']['launches'] = \
+            counts[P.DENOISER_BF16_FMA]
 
         # 11. the bfloat16 path through the kernel and the plain version
         r16_kernel, s16_kernel = run(model16)
@@ -511,11 +540,14 @@ def main() -> int:
         if not ok:
             raise RuntimeError('the bfloat16 main path through the kernel '
                                'disagrees with the plain version')
+
+        # 12. where the time of the bfloat16 pass goes
+        profile_phase('profile_bf16', lambda: run(model16))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    order = ('denoiser', 'denoiser_bf16', 'denoiser_grouped',
-             'denoiser_dma_f32', 'denoiser_dma_bf16')
+    order = ('denoiser', 'denoiser_bf16', 'denoiser_bf16_fma',
+             'denoiser_grouped', 'denoiser_dma_f32', 'denoiser_dma_bf16')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', **entries[k], library_ms=None)
         for k in order]}), flush=True)

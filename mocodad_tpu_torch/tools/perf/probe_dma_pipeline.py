@@ -1,5 +1,6 @@
 """Probe: the DMA-pipelined denoiser (B3, one persistent block per SM that
-prefetches its next tile) against the fused B1 at the same compute dtype.
+prefetches its next tile) against the fused B1 at the same compute dtype
+in its FMA design (`csrc/denoiser.cu`), whose body B3 runs.
 
 Counterpart of the JAX repository's `tools/perf/probe_dma_pipeline.py`
 (:241-322): build B3, check it against B1 at the same compute dtype on
@@ -42,7 +43,8 @@ def probe(dtype: torch.dtype = torch.bfloat16, n: int = N_ROWS,
     folded = flagship_fold(dev, seed)
     kernel = {torch.bfloat16: D.DMA_PIPELINED,
               torch.float32: D.DMA_PIPELINED_F32}[dtype]
-    b1 = {torch.bfloat16: P.DENOISER_BF16, torch.float32: P.DENOISER}[dtype]
+    b1 = {torch.bfloat16: P.DENOISER_BF16_FMA,
+          torch.float32: P.DENOISER}[dtype]
     name = str(dtype)[6:]
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     x, semb = fold_inputs(folded, N_PARITY, g)

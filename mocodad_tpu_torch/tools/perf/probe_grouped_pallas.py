@@ -1,5 +1,6 @@
 """Probe: the layer-grouped denoiser (B2, five kernels, bfloat16
-intermediates in device memory) against the fused B1 at bfloat16.
+intermediates in device memory) against the fused B1 at bfloat16 in its
+FMA design (`csrc/denoiser.cu`), the design B2 splits into groups.
 
 Counterpart of the JAX repository's `tools/perf/probe_grouped_pallas.py`
 (:221-270): build B2's kernels, check them against B1 at the same compute
@@ -39,7 +40,7 @@ def probe(n: int = N_ROWS, repeats: int = REPEATS, seed: int = 0) -> dict:
     x, semb = fold_inputs(folded, N_PARITY, g)
     xb, sb = x.bfloat16(), semb.bfloat16()
     got = G.GROUPED(xb, sb, folded)
-    want = P.DENOISER_BF16(xb, sb.float(), folded)
+    want = P.DENOISER_BF16_FMA(xb, sb.float(), folded)
     torch.cuda.synchronize()
     err, max_rel, mean_rel = rel_errors(got, want)
     print(f'parity vs B1 bf16 at N={N_PARITY}: max|d| {err:.5f} '
@@ -51,11 +52,12 @@ def probe(n: int = N_ROWS, repeats: int = REPEATS, seed: int = 0) -> dict:
     x, semb = fold_inputs(folded, n, g)
     xb, sb, s32 = x.bfloat16(), semb.bfloat16(), semb.bfloat16().float()
     ms = time_ms(lambda: G.GROUPED(xb, sb, folded), repeats)
-    b1_ms = time_ms(lambda: P.DENOISER_BF16(xb, s32, folded), repeats)
+    b1_ms = time_ms(lambda: P.DENOISER_BF16_FMA(xb, s32, folded), repeats)
     nsub = [gp.nsub for gp in G.grouped_plan(folded, dev).groups]
     print(f'grouped (5 kernels, sub-tiles per block {nsub}): {ms:.4f} ms '
           f'per forward at N={n}', flush=True)
-    print(f'B1 bf16 (1 kernel): {b1_ms:.4f} ms per forward at N={n}; '
+    print(f'B1 bf16, FMA design (1 kernel): {b1_ms:.4f} ms per forward '
+          f'at N={n}; '
           f'grouped / B1 {ms / b1_ms:.3f}', flush=True)
     return dict(ms=ms, b1_ms=b1_ms, max_abs_err=err, max_rel=max_rel,
                 mean_rel=mean_rel, nsub=nsub)

@@ -1,5 +1,6 @@
 """The CUDA denoiser kernels on the card, against their plain versions:
-B1 in float32 and bfloat16, B2 (grouped, bfloat16) and B3 (DMA-pipelined,
+B1 in float32 and bfloat16 (the tensor-core kernel, and the FMA design
+kept as its yardstick), B2 (grouped, bfloat16) and B3 (DMA-pipelined,
 float32 and bfloat16).
 
 These tests need a CUDA device and skip without one (the kernel has no
@@ -9,6 +10,10 @@ where only the port is installed:
     python -m pytest -q --noconftest -m gpu tests/test_torch_kernel_gpu.py
 """
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +21,7 @@ import torch
 from mocodad_tpu_torch.config import flagship_config
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.models.mocodad import MoCoDADModel, seeded_state
-from mocodad_tpu_torch.ops import dma_unet as D, grouped_unet as G
+from mocodad_tpu_torch.ops import build, dma_unet as D, grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
 
 pytestmark = pytest.mark.gpu
@@ -101,14 +106,52 @@ def _bf16_close(got, want):
 def test_bf16_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n + 1)
     xb = x.bfloat16()
-    before = (P.DENOISER.launches, P.DENOISER_BF16.launches)
+    kernels = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA)
+    before = [k.launches for k in kernels]
     got = P.denoise(xb, semb, folded)
-    assert (P.DENOISER.launches, P.DENOISER_BF16.launches) == \
-        (before[0], before[1] + 1)
+    assert [k.launches for k in kernels] == \
+        [before[0], before[1] + 1, before[2]]
     assert got.dtype == torch.bfloat16
     want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('n', NS)
+def test_bf16_fma_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 4)
+    xb = x.bfloat16()
+    before = P.DENOISER_BF16_FMA.launches
+    got = P.DENOISER_BF16_FMA(xb, semb, folded)
+    assert P.DENOISER_BF16_FMA.launches == before + 1
+    want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+def test_tc_wrapper_rejects_what_the_kernel_does_not_take(folded):
+    x, semb = _inputs(16, seed=5)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match='x_ctn must be bfloat16'):
+        P.DENOISER_BF16(x, semb, folded)
+    with pytest.raises(ValueError, match=r'\(2, 51, N\)'):
+        P.DENOISER_BF16(xb[:, :50].contiguous(), semb, folded)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        P.DENOISER_BF16(xb.cpu(), semb.cpu(), folded)
+    with pytest.raises(ValueError, match='contiguous'):
+        P.DENOISER_BF16(xb.transpose(0, 1).contiguous().transpose(0, 1),
+                        semb, folded)
+
+
+def test_tc_library_runs_on_the_tensor_cores(folded):
+    """The built library's SASS holds HMMA (mma.sync) instructions."""
+    P.DENOISER_BF16.load()
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    assert os.path.exists(tool), 'cuobjdump not found'
+    sass = subprocess.run([tool, '-sass',
+                           build.library_path(P.DENOISER_BF16.source)],
+                          capture_output=True, text=True, check=True).stdout
+    assert 'HMMA' in sass
 
 
 @pytest.mark.parametrize('n', NS)
@@ -173,11 +216,12 @@ def test_generate_bf16_runs_through_the_bf16_kernel(folded):
     net = seeded_state(model.build_net(), seed=0).to('cuda').eval()
     data = torch.randn((8, 2, 6, 17), device='cuda',
                        generator=torch.Generator('cuda').manual_seed(3))
-    before = (P.DENOISER.launches, P.DENOISER_BF16.launches)
+    kernels = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA)
+    before = [k.launches for k in kernels]
     sel, loss = model.generate(net, data,
                                torch.Generator('cuda').manual_seed(4))
-    assert (P.DENOISER.launches, P.DENOISER_BF16.launches) == \
-        (before[0], before[1] + 9)
+    assert [k.launches for k in kernels] == \
+        [before[0], before[1] + 9, before[2]]
     assert sel.dtype == loss.dtype == torch.float32
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()

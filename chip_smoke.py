@@ -4,19 +4,23 @@
 
 Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build     every kernel source (csrc/denoiser.cu, denoiser_tc.cu,
-               denoiser_grouped.cu, denoiser_dma.cu) with nvcc for sm_90a,
-               one nvcc each, all started together;
-  3. check     B1 in float32 against its plain PyTorch version on the card,
-               at N = 51,200 (the flagship fold, 1024 windows x 50 samples)
-               and at a ragged N;
-  4. time      B1 float32's and the plain version's ms per call at
-               N = 51,200, beside the least time the card could take;
+  2. build     every kernel source (csrc/denoiser.cu, denoiser_tc_f32.cu,
+               denoiser_tc.cu, denoiser_grouped.cu, denoiser_dma.cu) with
+               nvcc for sm_90a, one nvcc each, all started together;
+  3. check     B1 in float32 (the 3xTF32 tensor-core kernel, and the FMA
+               design kept as its yardstick) against its plain PyTorch
+               version on the card, at N = 51,200 (the flagship fold, 1024
+               windows x 50 samples) and at a ragged N;
+  4. time      B1 float32's ms per call at N = 51,200 (kernel_ms, and the
+               FMA design's fma_f32_ms) and the plain version's, beside the
+               least time the card could take: 3xTF32 on the tensor cores
+               (bound_ms) and the function on the FMA units
+               (fma_bound_ms);
   5. main      the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
                'best', 5 views, batch 1024, float32) from a seeded
                checkpoint on a synthetic dataset to the frame-level AUC,
                through `restore_and_infer`, with the kernels' launches
-               counted;
+               counted (the 3xTF32 kernel only);
   6. agree     the same path twice on the same injected noise, once through
                the kernel and once through the plain version;
   7. profile   one more pass through the kernel under torch.profiler: the
@@ -94,23 +98,27 @@ BF16_MAX_REL, BF16_MEAN_REL = 3e-2, 1e-3
 PATH_BF16_MAX_REL, PATH_BF16_MEAN_REL = 1e-2, 1e-3
 
 # the H100 SXM's float32 rate outside the tensor cores and its HBM rate,
-# and its dense bfloat16 tensor-core rate (NVIDIA's data sheet, at the
-# full 700 W); CUDA names that card 'NVIDIA H100 80GB HBM3'.  Another card
-# needs its own data sheet's rates.
+# and its dense bfloat16 and TF32 tensor-core rates (NVIDIA's data sheet,
+# at the full 700 W); CUDA names that card 'NVIDIA H100 80GB HBM3'.
+# Another card needs its own data sheet's rates.
 H100_SXM = 'H100 80GB HBM3'
 H100_SXM_PEAKS = (67e12, 3.35e12)
 H100_SXM_BF16_PEAK = 989e12
+H100_SXM_TF32_PEAK = 495e12
 
-KERNELS = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA, G.GROUPED,
-           D.DMA_PIPELINED_F32, D.DMA_PIPELINED)
+KERNELS = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
+           P.DENOISER_BF16_FMA, G.GROUPED, D.DMA_PIPELINED_F32,
+           D.DMA_PIPELINED)
 CSRC = 'mocodad_tpu_torch/csrc/'
 B1 = 'mocodad_tpu/ops/pallas_unet.py:105'
 
 
 def peaks_for(name: str):
-    """(float32 FLOP/s, bfloat16 FLOP/s, bytes/s) of the card."""
+    """(float32 FLOP/s, bfloat16 FLOP/s, TF32 FLOP/s, bytes/s) of the
+    card."""
     if H100_SXM in name:
-        return H100_SXM_PEAKS[0], H100_SXM_BF16_PEAK, H100_SXM_PEAKS[1]
+        return (H100_SXM_PEAKS[0], H100_SXM_BF16_PEAK, H100_SXM_TF32_PEAK,
+                H100_SXM_PEAKS[1])
     raise RuntimeError(f'no peak rates known for {name!r}; this script '
                        f'knows the {H100_SXM} only')
 
@@ -260,7 +268,7 @@ def main() -> int:
     card = card_line()
     phase('card', card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
-    flops_peak, bf16_peak, bytes_peak = peaks_for(name)
+    flops_peak, bf16_peak, tf32_peak, bytes_peak = peaks_for(name)
 
     # 2. build: every source at once, then bind every entry point
     t0 = time.perf_counter()
@@ -279,30 +287,43 @@ def main() -> int:
     errs = {}
     for n in (N_FOLD, N_RAGGED):
         x, semb = fold_inputs(folded, n, g)
-        got = P.DENOISER(x, semb, folded)
         want = P.denoise_reference(x, semb, folded)
-        torch.cuda.synchronize()
-        err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
-        errs[n] = err
-        phase('check', n=n, max_abs_err=err, rtol=KERNEL_RTOL,
-              atol=KERNEL_ATOL, ok=ok)
-        if not ok:
-            raise RuntimeError(f'kernel disagrees with its plain version at '
-                               f'N={n}: max |diff| {err}')
+        for key, kernel in (('denoiser', P.DENOISER),
+                            ('denoiser_f32_fma', P.DENOISER_F32_FMA)):
+            got = kernel(x, semb, folded)
+            torch.cuda.synchronize()
+            err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
+            errs[(key, n)] = err
+            phase('check', kernel=key, n=n, max_abs_err=err,
+                  rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+            if not ok:
+                raise RuntimeError(f'{key} disagrees with its plain version '
+                                   f'at N={n}: max |diff| {err}')
 
-    # 4. time and bound at N = 51,200
+    # 4. time and bounds at N = 51,200: the 3xTF32 kernel does three TF32
+    # products per float32 product on the tensor cores; the FMA design
+    # does the function's own on the FMA units
     x, semb = fold_inputs(folded, N_FOLD, g)
     kernel_ms = time_ms(lambda: P.DENOISER(x, semb, folded))
+    fma_ms = time_ms(lambda: P.DENOISER_F32_FMA(x, semb, folded))
     plain_ms = time_ms(lambda: P.denoise_reference(x, semb, folded))
     flops = P.denoiser_flops_per_row(folded) * N_FOLD
+    io_bytes = 4 * (2 * x.numel() + semb.numel())
+    plan_tc32 = P.tc32_plan(folded, dev)
+    n_bytes = io_bytes + plan_tc32.blob.numel()
+    bound_ms, bound_by = bound(3 * flops, n_bytes, tf32_peak, bytes_peak)
     plan32 = P.kernel_plan(folded, dev)
-    n_bytes = 4 * (2 * x.numel() + semb.numel()) + \
-        const_bytes(plan32.mats, plan32.vecs)
-    bound_ms, bound_by = bound(flops, n_bytes, flops_peak, bytes_peak)
+    fma_bytes = io_bytes + const_bytes(plan32.mats, plan32.vecs)
+    fma_bound_ms, fma_bound_by = bound(flops, fma_bytes, flops_peak,
+                                       bytes_peak)
     phase('time', n=N_FOLD, kernel_ms=f'{kernel_ms:.4f}',
-          plain_ms=f'{plain_ms:.4f}', bound_ms=f'{bound_ms:.4f}',
-          bound_by=bound_by, gflop=f'{flops / 1e9:.2f}',
-          mbytes=f'{n_bytes / 1e6:.2f}',
+          fma_f32_ms=f'{fma_ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound_ms:.4f}', bound_by=bound_by,
+          bound_share=f'{bound_ms / kernel_ms:.4f}',
+          fma_bound_ms=f'{fma_bound_ms:.4f}',
+          fma_bound_share=f'{fma_bound_ms / kernel_ms:.4f}',
+          fma_f32_bound_share=f'{fma_bound_ms / fma_ms:.4f}',
+          gflop=f'{flops / 1e9:.2f}', mbytes=f'{n_bytes / 1e6:.2f}',
           kernel_tflops=f'{flops / kernel_ms / 1e9:.2f}', card=repr(card))
 
     entries = {}
@@ -333,7 +354,8 @@ def main() -> int:
                 sum(counts.values()) != launches:
             raise RuntimeError(f'kernel launches on the main path: '
                                f'{launch_counts()}, expected 9 x '
-                               f'{n_batches} of the float32 kernel only')
+                               f'{n_batches} of the float32 tensor-core '
+                               f'kernel only')
 
         # 6. the same path through the kernel and the plain version
         net2 = model.build_net()
@@ -369,9 +391,17 @@ def main() -> int:
         profile_phase('profile', run)
         entries['denoiser'] = dict(
             dtype='float32', path='main, eval_dtype float32',
-            source=CSRC + 'denoiser.cu', replaces=B1, launches=launches,
-            max_abs_err=errs[N_FOLD], ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
+            source=CSRC + 'denoiser_tc_f32.cu', replaces=B1,
+            launches=launches, max_abs_err=errs[('denoiser', N_FOLD)],
+            ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+        entries['denoiser_f32_fma'] = dict(
+            dtype='float32', path='yardstick of denoiser, no main path',
+            source=CSRC + 'denoiser.cu', replaces=B1,
+            launches=counts[P.DENOISER_F32_FMA],
+            max_abs_err=errs[('denoiser_f32_fma', N_FOLD)], ms=fma_ms,
+            plain_ms=plain_ms, bound_ms=fma_bound_ms,
+            bound_by=fma_bound_by)
 
         # 8. the bfloat16 kernels against their plain versions
         bf16_errs = {}
@@ -546,8 +576,9 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    order = ('denoiser', 'denoiser_bf16', 'denoiser_bf16_fma',
-             'denoiser_grouped', 'denoiser_dma_f32', 'denoiser_dma_bf16')
+    order = ('denoiser', 'denoiser_f32_fma', 'denoiser_bf16',
+             'denoiser_bf16_fma', 'denoiser_grouped', 'denoiser_dma_f32',
+             'denoiser_dma_bf16')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', **entries[k], library_ms=None)
         for k in order]}), flush=True)

@@ -18,12 +18,13 @@ then channel mix), at a compute dtype: float32, or bfloat16 with float32
 accumulation and B1's rounding points (pallas_unet.py:157-204; the
 matrices rounded to bfloat16 as `_fold_gcn` / `_fold_joint` store them,
 biases and affines float32).  `denoise` routes by device: a CPU tensor
-goes to `denoise_reference` at x's dtype; a CUDA tensor launches a kernel
-(`DENOISER`, `csrc/denoiser.cu`, for float32 x; `DENOISER_BF16`, the
-tensor-core kernel `csrc/denoiser_tc.cu`, for bfloat16 x), or raises.
-`DENOISER_BF16_FMA` (`csrc/denoiser.cu`'s bfloat16 entry) is the FMA
-design of B1 at bfloat16, kept as the tensor-core kernel's yardstick;
-`pack_for_tc_kernel` lays out the tensor-core kernel's constants.
+goes to `denoise_reference` at x's dtype; a CUDA tensor launches a
+tensor-core kernel (`DENOISER`, `csrc/denoiser_tc_f32.cu`, 3xTF32, for
+float32 x; `DENOISER_BF16`, `csrc/denoiser_tc.cu`, for bfloat16 x), or
+raises.  `DENOISER_F32_FMA` and `DENOISER_BF16_FMA` (`csrc/denoiser.cu`'s
+two entries) are the FMA design of B1, kept as the tensor-core kernels'
+yardsticks; `pack_for_tc_f32_kernel` and `pack_for_tc_kernel` lay out the
+tensor-core kernels' constants.
 
 The grouped (B2, `ops/grouped_unet.py`) and DMA-pipelined (B3,
 `ops/dma_unet.py`) kernels compute the same function from the same packed
@@ -772,6 +773,281 @@ def tc_plan(folded: FoldedDenoiser, device: torch.device) -> TcPlan:
                        lambda: pack_for_tc_kernel(folded))
 
 
+# ---------------------------------------------------------------------------
+# The float32 tensor-core kernel's constants and shared-memory plan
+# (csrc/denoiser_tc_f32.cu, B1 at float32 as 3xTF32)
+# ---------------------------------------------------------------------------
+
+# must match the enums in csrc/denoiser_tc_f32.cu (checked when it loads)
+TC32_HEADER = ('nops', 'e', 'cin', 'tva', 'tvap', 'row0', 'row_bytes',
+               'x_off', 'x_stride', 'semb_off', 'emb_off', 'emb_stride',
+               'embw_blob', 'wbuf0', 'wbuf1', 'out_off', 'out_stride',
+               'pbuf_off')
+TC32_OP = ('kind', 'ci', 'nt', 'nsplit', 'tvi', 'tvo', 'mt', 'ks', 'in',
+           'in_stride', 'out', 'out_stride', 'skip', 'skip_stride', 'res',
+           'c0', 'blob', 'blob_bytes', 'k', 'w', 'w_stride', 'wr', 'bias',
+           'slope', 'rs', 'rt', 'emb')
+TC32_ROWS = 2                        # fold rows per tile (kRows)
+TC32_WARPS = 12                      # warps per block (kWarps)
+TC32_MAX_TABLE = 768                 # ints of table it copies (kMaxTable)
+TC32_STATIC_SMEM = 4 * TC32_MAX_TABLE + 16   # the table and two mbarriers
+TC32_MAX_E = 16                      # embedding width it unrolls for (kMaxE)
+TC32_UNIT_TILES = (1, 2, 4)          # 8-channel output tiles per unit it
+                                     # instantiates
+
+
+def pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def tc32_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool,
+                warps: int = TC32_WARPS) -> int:
+    """Parts of one op record's output tiles over its `units` (row, 16
+    positions): the split that makes the busiest warp's MMA count least
+    (rounds of units over `warps` warps; per 16-channel chunk a unit
+    issues 2 x ks graph-mix products and 2 channel-mix products per output
+    tile, 4 with a residual mix, and recomputes its graph mix in every
+    part), fewest parts on a tie."""
+    def cost(ns):
+        per_unit = chunks * (2 * ks + (4 if res else 2) * nt // ns)
+        return -(-units * ns // warps) * per_unit
+    fits = [ns for ns in (1, 2, 4, 8) if nt % ns == 0
+            and nt // ns in TC32_UNIT_TILES]
+    if not fits:
+        raise ValueError(f'the float32 tensor-core denoiser cannot split '
+                         f'{8 * nt} output channels into units of '
+                         f'{[8 * t for t in TC32_UNIT_TILES]}')
+    return min(fits, key=lambda ns: (cost(ns), ns))
+
+
+def tc32_stride(c: int) -> int:
+    """Row stride (floats) of a float32 (T*V, C) tile: C padded to 16, plus
+    8, so that the stride is 8 or 24 mod 32 words (conflict-free fragment
+    loads, see the source note)."""
+    return pad16(c) + 8
+
+
+def tc32_act_bytes(tv: int, c: int) -> int:
+    """Bytes of one row's float32 (T*V, C) activation tile, T*V padded to
+    16."""
+    return pad16(tv) * tc32_stride(c) * 4
+
+
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """float32 -> float32 rounded to TF32 as the kernel does it: the low 13
+    bits of the magnitude rounded off, to nearest, ties away from zero
+    ((bits + 0x1000) & ~0x1fff, what cvt.rna.tf32.f32 gives)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def tf32_split(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """a = hi + lo: hi = tf32_round(a), lo = a - hi (exact in float32)."""
+    a = np.asarray(a, np.float32)
+    hi = tf32_round(a)
+    return hi, (a - hi).astype(np.float32)
+
+
+def k_fragments(m: torch.Tensor, mt: int, ks: int) -> np.ndarray:
+    """A graph operator (TVo, TVi) as the kernel's A fragments of
+    mma.m16n8k8 TF32: zero-padded to (16 mt, 8 ks), split into hi and lo
+    (both rounded to TF32), and laid out (mt, ks, hi / lo, lane, 4) with a
+    lane's four registers (a0..a3) = rows g, g + 8, g, g + 8 and columns
+    t, t, t + 4, t + 4 of the 16 x 8 block (g = lane / 4, t = lane % 4)."""
+    mat = m.detach().cpu().float().numpy()
+    k = np.zeros((16 * mt, 8 * ks), np.float32)
+    k[:mat.shape[0], :mat.shape[1]] = mat
+    hi, lo = tf32_split(k)
+    lo = tf32_round(lo)
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    rows = np.stack([gid, gid + 8, gid, gid + 8], axis=1)    # (32, 4)
+    cols = np.stack([tig, tig, tig + 4, tig + 4], axis=1)
+    out = np.empty((mt, ks, 2, 32, 4), np.float32)
+    for i in range(mt):
+        for s in range(ks):
+            for part, src in enumerate((hi, lo)):
+                out[i, s, part] = src[16 * i + rows, 8 * s + cols]
+    return out
+
+
+def tc32_parts_bytes(mt: int, ks: int, ci: int, nt: int, res: bool) -> int:
+    """Bytes of one op record's constants: K hi and lo in fragment order,
+    W (and Wr) as (8 nt, tc32_stride(ci)) float32 tiles, bias, slope."""
+    return (mt * ks * 2 * 512 + (2 if res else 1) * 8 * nt *
+            tc32_stride(ci) * 4 + -(-8 * nt * 4 // 16) * 16 + 16)
+
+
+def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
+                           warps: int = TC32_WARPS) -> TcPlan:
+    """Lay the folded constants out for `csrc/denoiser_tc_f32.cu` and plan
+    its shared memory (offsets in bytes, strides in floats), for a build
+    with `warps` warps per block: two weight buffers, every layer's
+    embedding, a prefetch buffer for the next tile's x and silu_emb, then
+    TC32_ROWS row areas.
+
+    One row's area: x, the skips d1 and d2, silu_emb, then a work area
+    whose two ends alternate as layer input and output, every activation a
+    float32 (T*V, C) tile of `tc32_stride` columns.  Each op record's
+    constants are one 16-byte aligned block of the blob, copied whole into
+    a weight buffer: an ST-GCNN layer's K (`k_fragments`), W and Wr (C_out,
+    C_in) as float32 tiles, bias and slope; a joint re-scaling's dense
+    (T*V_out, T*V_in) operator as K, and its per-row affine.  A layer whose constants would not fit
+    a buffer (two buffers beside TC32_ROWS row areas and the embeddings)
+    becomes 2 or 4 records over parts of its C_out, each with its own copy
+    of K.  Every layer's W_e (C_out, E), stacked and transposed to (E, sum
+    of C_out), then its b_e, form the blob's last block, which the kernel
+    reads through __ldg."""
+    seq = layer_sequence(folded)
+    e_dim, cin = folded.embedding_dim, folded.c_in
+    if e_dim > TC32_MAX_E:
+        raise ValueError(f'the float32 tensor-core denoiser takes embeddings '
+                         f'of at most {TC32_MAX_E}, got {e_dim}')
+    chans = [cin]
+    for kind, i, _, _ in seq:
+        chans.append(folded.gcn[i].w2.shape[0] if kind == 0 else chans[-1])
+
+    # one row's area: fixed regions, then the work area
+    regions = [('x', tc32_act_bytes(seq[0][2], cin)),
+               ('d1', tc32_act_bytes(seq[2][3], chans[3])),
+               ('d2', tc32_act_bytes(seq[5][3], chans[6])),
+               ('semb', -(-e_dim * 4 // 16) * 16)]
+    off, total = {}, 0
+    for name, size in regions:
+        off[name] = total
+        total += size
+    dst, skip = {2: 'd1', 5: 'd2'}, {9: 'd2', 12: 'd1'}
+    where, sides, work = 'x', [], 0
+    for k, (_, _, tvi, tvo) in enumerate(seq):
+        s_in = tc32_act_bytes(tvi, chans[k])
+        s_out = tc32_act_bytes(tvo, chans[k + 1])
+        out = dst.get(k) or ('R' if where == 'L' else 'L')
+        work = max(work, (s_in if where in 'LR' else 0)
+                   + (s_out if out in 'LR' else 0))
+        sides.append((where, out, s_in, s_out))
+        where = out
+
+    def at(side, size):
+        if side in off:
+            return off[side]
+        return total if side == 'L' else total + work - size
+
+    row_bytes = total + work
+    emb_stride = sum(pad8(w.w2.shape[0]) for w in folded.gcn)
+    emb_bytes = TC32_ROWS * emb_stride * 4
+    # the next tile's x and silu_emb, as cp.async brings them
+    pbuf_bytes = -(-TC32_ROWS * (cin * seq[0][2] + e_dim) * 4 // 16) * 16
+    # the kernel also holds the table and its mbarriers in static shared
+    # memory
+    wcap = (MAX_SMEM_BYTES - TC32_STATIC_SMEM - TC32_ROWS * row_bytes
+            - emb_bytes - pbuf_bytes) // 2 // 16 * 16
+
+    ops, blocks = [], []
+    emb_w, emb_b = [], []            # every layer's W_e and b_e, stacked
+    for k, ((kind, i, tvi, tvo), (src, out, s_in, s_out)) in enumerate(
+            zip(seq, sides)):
+        ci, co = chans[k], chans[k + 1]
+        rec = dict(kind=kind, tvi=tvi, tvo=tvo, mt=pad16(tvo) // 16,
+                   ks=pad8(tvi) // 8, ci=pad16(ci), res=0, c0=0,
+                   w=-1, w_stride=0, wr=-1, bias=-1, slope=-1, rs=-1, rt=-1,
+                   emb=-1, skip=off[skip[k]] if k in skip else -1,
+                   skip_stride=tc32_stride(co) if k in skip else 0,
+                   **{'in': at(src, s_in), 'in_stride': tc32_stride(ci),
+                      'out': at(out, s_out), 'out_stride': tc32_stride(co)})
+        if kind == 1:
+            j = folded.joint[i]
+            b = _Blob()
+            rec.update(nt=pad16(ci) // 8, nsplit=1,
+                       k=b.add(k_fragments(j.d2, rec['mt'], rec['ks'])),
+                       rs=b.vec(j.rs, pad16(tvo)), rt=b.vec(j.rt, pad16(tvo)))
+            ops.append(rec)
+            blocks.append(b)
+            continue
+        w = folded.gcn[i]
+        res = w.wr2 is not None
+        nt = pad8(co) // 8
+        parts = 1
+        while tc32_parts_bytes(rec['mt'], rec['ks'], ci, nt // parts,
+                               res) > wcap:
+            parts *= 2
+            if nt % parts:
+                raise ValueError(f'the float32 tensor-core denoiser cannot '
+                                 f'fit layer {GCN_LAYERS[i]}\'s constants '
+                                 f'in {wcap} bytes')
+        ntp = nt // parts
+        kfrag = k_fragments(w.k2, rec['mt'], rec['ks'])
+        col = sum(a.shape[0] for a in emb_w)
+        for p in range(parts):
+            b = _Blob()
+            rows = slice(8 * ntp * p, 8 * ntp * (p + 1))
+
+            def tile(m):
+                t = np.zeros((8 * nt, tc32_stride(ci)), np.float32)
+                mat = m.detach().cpu().float().numpy()
+                t[:mat.shape[0], :mat.shape[1]] = mat
+                return b.add(t[rows])
+
+            bias = np.zeros(8 * nt, np.float32)
+            bias[:co] = w.bias.detach().cpu().float().numpy()
+            r = dict(rec, nt=ntp, res=int(res), c0=8 * ntp * p,
+                     emb=col + 8 * ntp * p, k=b.add(kfrag), w=tile(w.w2),
+                     w_stride=tc32_stride(ci))
+            if res:
+                r['wr'] = tile(w.wr2)
+            r.update(bias=b.add(bias[rows]),
+                     slope=b.add(np.float32([w.slope])),
+                     nsplit=tc32_nsplit(TC32_ROWS * rec['mt'],
+                                        pad16(ci) // 16, rec['ks'], ntp,
+                                        res, warps))
+            ops.append(r)
+            blocks.append(b)
+        we = np.zeros((8 * nt, e_dim), np.float32)
+        we[:co] = w.we2.detach().cpu().float().numpy()
+        eb = np.zeros(8 * nt, np.float32)
+        eb[:co] = w.eb.detach().cpu().float().numpy()
+        emb_w.append(we)
+        emb_b.append(eb)
+
+    offset = 0
+    for o, b in zip(ops, blocks):
+        o.update(blob=offset, blob_bytes=b.size)
+        offset += b.size
+    embw = _Blob()
+    embw.add(np.ascontiguousarray(np.concatenate(emb_w).T))
+    embw.add(np.concatenate(emb_b))
+    wbuf = max(b.size for b in blocks)
+    emb_off = 2 * wbuf
+    pbuf_off = emb_off + emb_bytes
+    row0 = pbuf_off + pbuf_bytes
+    smem_bytes = row0 + TC32_ROWS * row_bytes
+    check_smem('float32 tensor-core denoiser',
+               smem_bytes + TC32_STATIC_SMEM)
+    header = dict(nops=len(ops), e=e_dim, cin=cin, tva=seq[0][2],
+                  tvap=pad16(seq[0][2]), row0=row0, row_bytes=row_bytes,
+                  x_off=off['x'], x_stride=tc32_stride(cin),
+                  semb_off=off['semb'], emb_off=emb_off,
+                  emb_stride=emb_stride, embw_blob=offset, wbuf0=0,
+                  wbuf1=wbuf, out_off=ops[-1]['out'],
+                  out_stride=ops[-1]['out_stride'], pbuf_off=pbuf_off)
+    table = [header[k] for k in TC32_HEADER] + \
+        [int(o[k]) for o in ops for k in TC32_OP]
+    if len(table) > TC32_MAX_TABLE:
+        raise ValueError(f'the float32 tensor-core denoiser reads at most '
+                         f'{TC32_MAX_TABLE} table entries, got {len(table)}')
+    blob = np.concatenate([p for b in blocks + [embw] for p in b.parts])
+    return TcPlan(blob=torch.from_numpy(blob),
+                  table=torch.tensor(table, dtype=torch.int32),
+                  smem_bytes=smem_bytes)
+
+
+def tc32_plan(folded: FoldedDenoiser, device: torch.device,
+              warps: int = TC32_WARPS) -> TcPlan:
+    """The float32 tensor-core kernel's packed constants and table on
+    `device`, built once per warp count."""
+    return cached_plan(folded, ('denoiser_tc32', warps), device,
+                       lambda: pack_for_tc_f32_kernel(folded, warps))
+
+
 def denoiser_flops_per_row(folded: FoldedDenoiser) -> int:
     """Floating-point operations the function needs per fold row: 2 per
     multiply-add of its products, plus the elementwise epilogues.  The
@@ -917,19 +1193,26 @@ class TensorCoreDenoiserKernel:
 
     source = 'denoiser_tc.cu'
     symbol = 'mocodad_denoiser_tc_launch'
+    prefix = 'mocodad_denoiser_tc'
     dtype = torch.bfloat16
 
     def __init__(self):
         self.launches = 0
         self._fn = None
 
+    def constants(self) -> Dict[str, int]:
+        """What the library must report: the plan the host packs for."""
+        return {'rows_per_block': TC_ROWS, 'warps_per_block': TC_WARPS,
+                'max_table': TC_MAX_TABLE, 'header_len': len(TC_HEADER),
+                'op_len': len(TC_OP)}
+
+    def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+        return tc_plan(folded, device)
+
     def load(self):
         """Build (at first use) and bind the C entry point."""
         if self._fn is None:
-            lib = load_library(self.source, 'mocodad_denoiser_tc', {
-                'rows_per_block': TC_ROWS, 'warps_per_block': TC_WARPS,
-                'max_table': TC_MAX_TABLE, 'header_len': len(TC_HEADER),
-                'op_len': len(TC_OP)})
+            lib = load_library(self.source, self.prefix, self.constants())
             self._fn = bind(lib, self.symbol, 5, 2)
         return self._fn
 
@@ -940,7 +1223,7 @@ class TensorCoreDenoiserKernel:
         out = torch.empty_like(x_ctn)
         if n == 0:
             return out
-        plan = tc_plan(folded, x_ctn.device)
+        plan = self.plan(folded, x_ctn.device)
         fn = self.load()
         with torch.cuda.device(x_ctn.device):
             err = fn(x_ctn.data_ptr(), silu_emb_en.data_ptr(),
@@ -948,16 +1231,36 @@ class TensorCoreDenoiserKernel:
                      out.data_ptr(), n, plan.smem_bytes,
                      current_stream(x_ctn.device))
         if err != 0:
-            raise RuntimeError(f'tensor-core denoiser kernel launch failed: '
-                               f'CUDA error {err}')
+            raise RuntimeError(f'{self.source} kernel launch failed: CUDA '
+                               f'error {err}')
         self.launches += 1
         return out
 
 
-DENOISER = DenoiserKernel(torch.float32)
-# B1 at bfloat16: the tensor-core kernel on the main path, and the FMA
+class TensorCoreF32DenoiserKernel(TensorCoreDenoiserKernel):
+    """Wrapper of `csrc/denoiser_tc_f32.cu`, B1 at float32 on the tensor
+    cores as 3xTF32: float32 x, silu_emb and eps.  `launches` counts the
+    kernel launches this process made through it, and nothing else."""
+
+    source = 'denoiser_tc_f32.cu'
+    symbol = 'mocodad_denoiser_tc32_launch'
+    prefix = 'mocodad_denoiser_tc32'
+    dtype = torch.float32
+
+    def constants(self) -> Dict[str, int]:
+        return {'rows_per_block': TC32_ROWS, 'warps_per_block': TC32_WARPS,
+                'max_table': TC32_MAX_TABLE, 'header_len': len(TC32_HEADER),
+                'op_len': len(TC32_OP)}
+
+    def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+        return tc32_plan(folded, device)
+
+
+# B1 at each dtype: the tensor-core kernel on the main path, and the FMA
 # design of csrc/denoiser.cu kept as its yardstick (timed beside it, never
 # on a main path)
+DENOISER = TensorCoreF32DenoiserKernel()
+DENOISER_F32_FMA = DenoiserKernel(torch.float32)
 DENOISER_BF16 = TensorCoreDenoiserKernel()
 DENOISER_BF16_FMA = DenoiserKernel(torch.bfloat16)
 

@@ -44,7 +44,7 @@ def probe(dtype: torch.dtype = torch.bfloat16, n: int = N_ROWS,
     kernel = {torch.bfloat16: D.DMA_PIPELINED,
               torch.float32: D.DMA_PIPELINED_F32}[dtype]
     b1 = {torch.bfloat16: P.DENOISER_BF16_FMA,
-          torch.float32: P.DENOISER}[dtype]
+          torch.float32: P.DENOISER_F32_FMA}[dtype]
     name = str(dtype)[6:]
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     x, semb = fold_inputs(folded, N_PARITY, g)

@@ -290,7 +290,8 @@ def test_bf16_cpu_tensor_goes_to_the_plain_version(weights):
     _, folded, _ = weights
     x, semb = _inputs(8, seed=3)
     xb, s = torch.from_numpy(x).bfloat16(), torch.from_numpy(semb)
-    kernels = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
+               P.DENOISER_BF16_FMA)
     before = [k.launches for k in kernels]
     got = P.denoise(xb, s, folded)
     assert [k.launches for k in kernels] == before

@@ -1,7 +1,7 @@
 """The CUDA denoiser kernels on the card, against their plain versions:
-B1 in float32 and bfloat16 (the tensor-core kernel, and the FMA design
-kept as its yardstick), B2 (grouped, bfloat16) and B3 (DMA-pipelined,
-float32 and bfloat16).
+B1 in float32 and bfloat16 (the tensor-core kernels, 3xTF32 and bf16, and
+the FMA design kept as their yardstick), B2 (grouped, bfloat16) and B3
+(DMA-pipelined, float32 and bfloat16).
 
 These tests need a CUDA device and skip without one (the kernel has no
 CPU mode).  They import neither JAX nor the JAX package, so they also run
@@ -11,6 +11,7 @@ where only the port is installed:
 """
 
 import os
+import re
 import shutil
 import subprocess
 
@@ -26,8 +27,9 @@ from mocodad_tpu_torch.ops import pallas_unet as P
 
 pytestmark = pytest.mark.gpu
 
-# float32 on both sides; the kernel sums in another order than cuBLAS and
-# contracts multiply-adds into FMAs
+# float32 on both sides; the kernel sums in another order than cuBLAS,
+# contracts multiply-adds into FMAs and (the tensor-core kernel) takes each
+# product as 3xTF32, about 2^-21 relative
 RTOL, ATOL = 1e-4, 1e-5
 # bfloat16 on both sides at the same rounding points: a sum taken in
 # another order can round the other way (2^-8 relative) and later layers
@@ -59,9 +61,10 @@ def _inputs(n, seed):
 @pytest.mark.parametrize('n', [1, 8, 1031, 4096])
 def test_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n)
-    before = P.DENOISER.launches
+    kernels = (P.DENOISER, P.DENOISER_F32_FMA)
+    before = [k.launches for k in kernels]
     got = P.denoise(x, semb, folded)
-    assert P.DENOISER.launches == before + 1
+    assert [k.launches for k in kernels] == [before[0] + 1, before[1]]
     want = P.denoise_reference(x, semb, folded)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -86,12 +89,57 @@ def test_generate_runs_through_the_kernel(folded):
     net = seeded_state(model.build_net(), seed=0).to('cuda').eval()
     data = torch.randn((8, 2, 6, 17), device='cuda',
                        generator=torch.Generator('cuda').manual_seed(3))
-    before = P.DENOISER.launches
+    kernels = (P.DENOISER, P.DENOISER_F32_FMA)
+    before = [k.launches for k in kernels]
     sel, loss = model.generate(net, data,
                                torch.Generator('cuda').manual_seed(4))
-    assert P.DENOISER.launches == before + 9
+    assert [k.launches for k in kernels] == [before[0] + 9, before[1]]
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize('n', NS)
+def test_f32_fma_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 5)
+    before = P.DENOISER_F32_FMA.launches
+    got = P.DENOISER_F32_FMA(x, semb, folded)
+    assert P.DENOISER_F32_FMA.launches == before + 1
+    want = P.denoise_reference(x, semb, folded)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_tc32_wrapper_rejects_what_the_kernel_does_not_take(folded):
+    x, semb = _inputs(16, seed=6)
+    with pytest.raises(ValueError, match='x_ctn must be float32'):
+        P.DENOISER(x.bfloat16(), semb, folded)
+    with pytest.raises(ValueError, match='silu_emb_en must be float32'):
+        P.DENOISER(x, semb.bfloat16(), folded)
+    with pytest.raises(ValueError, match=r'\(2, 51, N\)'):
+        P.DENOISER(x[:, :50].contiguous(), semb, folded)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        P.DENOISER(x.cpu(), semb.cpu(), folded)
+    with pytest.raises(ValueError, match='contiguous'):
+        P.DENOISER(x.transpose(0, 1).contiguous().transpose(0, 1), semb,
+                   folded)
+
+
+def _sass(kernel):
+    kernel.load()
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    assert os.path.exists(tool), 'cuobjdump not found'
+    return subprocess.run([tool, '-sass', build.library_path(kernel.source)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def test_tc32_library_runs_3xtf32_on_the_tensor_cores(folded):
+    """The float32 library's SASS holds TF32 HMMAs, and no bf16 or f16
+    ones: every product runs on the tensor cores in TF32 (three of them
+    per product, which the f32 check at rtol 1e-4 shows)."""
+    sass = _sass(P.DENOISER)
+    assert re.search(r'HMMA\.1688\.F32\.TF32', sass)
+    assert not re.search(r'HMMA\.\d+\.F32\.(BF16|F16)', sass)
 
 
 def _bf16_close(got, want):
@@ -106,11 +154,12 @@ def _bf16_close(got, want):
 def test_bf16_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n + 1)
     xb = x.bfloat16()
-    kernels = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
+               P.DENOISER_BF16_FMA)
     before = [k.launches for k in kernels]
     got = P.denoise(xb, semb, folded)
     assert [k.launches for k in kernels] == \
-        [before[0], before[1] + 1, before[2]]
+        [before[0], before[1], before[2] + 1, before[3]]
     assert got.dtype == torch.bfloat16
     want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -145,13 +194,7 @@ def test_tc_wrapper_rejects_what_the_kernel_does_not_take(folded):
 
 def test_tc_library_runs_on_the_tensor_cores(folded):
     """The built library's SASS holds HMMA (mma.sync) instructions."""
-    P.DENOISER_BF16.load()
-    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-    assert os.path.exists(tool), 'cuobjdump not found'
-    sass = subprocess.run([tool, '-sass',
-                           build.library_path(P.DENOISER_BF16.source)],
-                          capture_output=True, text=True, check=True).stdout
-    assert 'HMMA' in sass
+    assert 'HMMA' in _sass(P.DENOISER_BF16)
 
 
 @pytest.mark.parametrize('n', NS)
@@ -182,8 +225,9 @@ def test_dma_kernel_matches_plain_version(folded, dtype, n):
     torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        # B3 runs B1's table: the same sums in the same order
-        torch.testing.assert_close(got, P.DENOISER(x, semb, folded),
+        # B3 runs the table of B1's FMA design: the same sums in the
+        # same order
+        torch.testing.assert_close(got, P.DENOISER_F32_FMA(x, semb, folded),
                                    rtol=0, atol=0)
     else:
         _bf16_close(got, want)
@@ -216,12 +260,13 @@ def test_generate_bf16_runs_through_the_bf16_kernel(folded):
     net = seeded_state(model.build_net(), seed=0).to('cuda').eval()
     data = torch.randn((8, 2, 6, 17), device='cuda',
                        generator=torch.Generator('cuda').manual_seed(3))
-    kernels = (P.DENOISER, P.DENOISER_BF16, P.DENOISER_BF16_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
+               P.DENOISER_BF16_FMA)
     before = [k.launches for k in kernels]
     sel, loss = model.generate(net, data,
                                torch.Generator('cuda').manual_seed(4))
     assert [k.launches for k in kernels] == \
-        [before[0], before[1] + 9, before[2]]
+        [before[0], before[1], before[2] + 9, before[3]]
     assert sel.dtype == loss.dtype == torch.float32
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()

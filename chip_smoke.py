@@ -4,9 +4,10 @@
 
 Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build     every kernel source (csrc/denoiser.cu, denoiser_tc_f32.cu,
-               denoiser_tc.cu, denoiser_grouped.cu, denoiser_dma.cu) with
-               nvcc for sm_90a, one nvcc each, all started together;
+  2. build     every kernel source (csrc/denoiser.cu, denoiser_dma.cu,
+               denoiser_grouped.cu, denoiser_tc.cu, denoiser_tc_dma.cu,
+               denoiser_tc_f32.cu, denoiser_tc_grouped.cu) with nvcc for
+               sm_90a, one nvcc each, all started together;
   3. check     B1 in float32 (the 3xTF32 tensor-core kernel, and the FMA
                design kept as its yardstick) against its plain PyTorch
                version on the card, at N = 51,200 (the flagship fold, 1024
@@ -27,17 +28,20 @@ Phases, each printing one line:
                denoiser's device time, the rest of the device time, and the
                device's idle share of the pass;
   8. check_bf16, check_grouped, check_dma
-               B1 at bfloat16 (the tensor-core kernel, and the FMA design
-               kept as its yardstick), B2 (bfloat16) and B3 (float32 and
-               bfloat16) against their plain versions at both N;
+               B1 at bfloat16, B2 (bfloat16) and B3 (float32 and
+               bfloat16), each on the tensor cores and in the FMA design
+               kept as its yardstick, against their plain versions at
+               both N;
   9. time_bf16, time_grouped, time_dma
                ms per forward at N = 51,200 of each, its plain version's,
                its bound, and B1's at the same dtype in the same run
                (time_bf16 also the FMA design's, fma_bf16_ms); B2 and B3
                are timed by their probe scripts
                (mocodad_tpu_torch/tools/perf/), whose runs are those
-               kernels' paths and count their launches, beside the FMA
-               design of B1 that they vary;
+               kernels' paths and count their launches, beside their FMA
+               designs and B1's tensor-core kernel, the design they vary;
+               time_grouped also B2's design floor (the intermediates'
+               bytes added to the bound) and each group's ms;
  10. main_bf16 the main path again with `eval_dtype: bfloat16`, through
                the tensor-core kernel only;
  11. agree_bf16 that path through the kernel and through the plain version
@@ -106,9 +110,15 @@ H100_SXM_PEAKS = (67e12, 3.35e12)
 H100_SXM_BF16_PEAK = 989e12
 H100_SXM_TF32_PEAK = 495e12
 
-KERNELS = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
-           P.DENOISER_BF16_FMA, G.GROUPED, D.DMA_PIPELINED_F32,
-           D.DMA_PIPELINED)
+# every kernel wrapper by its name in the kernels JSON line
+KERNELS = {
+    'denoiser': P.DENOISER, 'denoiser_f32_fma': P.DENOISER_F32_FMA,
+    'denoiser_bf16': P.DENOISER_BF16, 'denoiser_bf16_fma': P.DENOISER_BF16_FMA,
+    'denoiser_grouped': G.GROUPED, 'denoiser_grouped_fma': G.GROUPED_FMA,
+    'denoiser_dma_f32': D.DMA_PIPELINED_F32,
+    'denoiser_dma_f32_fma': D.DMA_PIPELINED_F32_FMA,
+    'denoiser_dma_bf16': D.DMA_PIPELINED,
+    'denoiser_dma_bf16_fma': D.DMA_PIPELINED_FMA}
 CSRC = 'mocodad_tpu_torch/csrc/'
 B1 = 'mocodad_tpu/ops/pallas_unet.py:105'
 
@@ -154,13 +164,23 @@ def bf16_check(got: torch.Tensor, want: torch.Tensor, max_rel: float,
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS.values():
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {f'{type(k).__name__}.{getattr(k, "dtype", "")}': k.launches
-            for k in KERNELS}
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def check_main_launches(counts: dict, kernel: str, n_batches: int,
+                        what: str) -> None:
+    """Raise unless the main path launched `kernel` 9 times per batch and
+    no other kernel (no B2, B3 or FMA design) at all."""
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if counts[kernel] != 9 * n_batches or others:
+        raise RuntimeError(f'kernel launches on the {what} main path: '
+                           f'{counts}, expected 9 x {n_batches} of '
+                           f'{kernel} only')
 
 
 def bound(flops: float, n_bytes: float, flops_peak: float,
@@ -250,7 +270,7 @@ def main_path(cfg, eval_dtype: str):
     t0 = time.perf_counter()
     model, ds, res = restore_and_infer(cfg, device='cuda')
     seconds = time.perf_counter() - t0
-    counts = {k: k.launches for k in KERNELS}
+    counts = launch_counts()
     auc = post_processing_from_config(res['loss'], res['trans'],
                                       res['meta'], res['frames'], cfg)
     if res['loss'].shape != (len(ds),) or \
@@ -272,9 +292,9 @@ def main() -> int:
 
     # 2. build: every source at once, then bind every entry point
     t0 = time.perf_counter()
-    sources = sorted({k.source for k in KERNELS})
+    sources = sorted({k.source for k in KERNELS.values()})
     build.build_all(sources, verbose=True)
-    for k in KERNELS:
+    for k in KERNELS.values():
         k.load()
     phase('build', kernels=','.join(sources),
           seconds=f'{time.perf_counter() - t0:.1f}')
@@ -345,17 +365,12 @@ def main() -> int:
                    os.path.join(work, cfg.load_ckpt))
 
         model, ds, res, counts, seconds, auc = main_path(cfg, 'float32')
-        launches = counts[P.DENOISER]
+        launches = counts['denoiser']
         n_batches = -(-len(ds) // cfg.batch_size)
         phase('main', windows=len(ds), batches=n_batches,
               launches=launches, seconds=f'{seconds:.3f}',
               windows_per_s=f'{len(ds) / seconds:.1f}', auc=f'{auc:.6f}')
-        if launches != 9 * n_batches or \
-                sum(counts.values()) != launches:
-            raise RuntimeError(f'kernel launches on the main path: '
-                               f'{launch_counts()}, expected 9 x '
-                               f'{n_batches} of the float32 tensor-core '
-                               f'kernel only')
+        check_main_launches(counts, 'denoiser', n_batches, 'float32')
 
         # 6. the same path through the kernel and the plain version
         net2 = model.build_net()
@@ -398,31 +413,40 @@ def main() -> int:
         entries['denoiser_f32_fma'] = dict(
             dtype='float32', path='yardstick of denoiser, no main path',
             source=CSRC + 'denoiser.cu', replaces=B1,
-            launches=counts[P.DENOISER_F32_FMA],
+            launches=counts['denoiser_f32_fma'],
             max_abs_err=errs[('denoiser_f32_fma', N_FOLD)], ms=fma_ms,
             plain_ms=plain_ms, bound_ms=fma_bound_ms,
             bound_by=fma_bound_by)
 
-        # 8. the bfloat16 kernels against their plain versions
+        # 8. the bfloat16 kernels, B2 and B3 against their plain versions
         bf16_errs = {}
         for n in (N_FOLD, N_RAGGED):
             x, semb = fold_inputs(folded, n, g)
-            xb = x.bfloat16()
+            xb, sb = x.bfloat16(), semb.bfloat16()
+
+            def b1_plain():
+                return P.denoise_reference(xb, semb, folded,
+                                           compute_dtype=torch.bfloat16)
+
+            def grouped_plain():
+                return G.grouped_reference(xb, sb, folded)
+
+            def dma_plain():
+                return D.dma_reference(x, semb, folded, torch.bfloat16)
+
             cases = (
                 ('check_bf16', 'denoiser_bf16',
-                 lambda: P.DENOISER_BF16(xb, semb, folded),
-                 lambda: P.denoise_reference(xb, semb, folded,
-                                             compute_dtype=torch.bfloat16)),
+                 lambda: P.DENOISER_BF16(xb, semb, folded), b1_plain),
                 ('check_bf16', 'denoiser_bf16_fma',
-                 lambda: P.DENOISER_BF16_FMA(xb, semb, folded),
-                 lambda: P.denoise_reference(xb, semb, folded,
-                                             compute_dtype=torch.bfloat16)),
+                 lambda: P.DENOISER_BF16_FMA(xb, semb, folded), b1_plain),
                 ('check_grouped', 'denoiser_grouped',
-                 lambda: G.GROUPED(xb, semb.bfloat16(), folded),
-                 lambda: G.grouped_reference(xb, semb.bfloat16(), folded)),
+                 lambda: G.GROUPED(xb, sb, folded), grouped_plain),
+                ('check_grouped', 'denoiser_grouped_fma',
+                 lambda: G.GROUPED_FMA(xb, sb, folded), grouped_plain),
                 ('check_dma', 'denoiser_dma_bf16',
-                 lambda: D.DMA_PIPELINED(x, semb, folded),
-                 lambda: D.dma_reference(x, semb, folded, torch.bfloat16)))
+                 lambda: D.DMA_PIPELINED(x, semb, folded), dma_plain),
+                ('check_dma', 'denoiser_dma_bf16_fma',
+                 lambda: D.DMA_PIPELINED_FMA(x, semb, folded), dma_plain))
             for ph, key, kernel, plain in cases:
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
@@ -436,16 +460,17 @@ def main() -> int:
                 if not ok:
                     raise RuntimeError(f'{key} disagrees with its plain '
                                        f'version at N={n}')
-            got = D.DMA_PIPELINED_F32(x, semb, folded)
             want = D.dma_reference(x, semb, folded, torch.float32)
-            torch.cuda.synchronize()
-            err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
-            bf16_errs[('denoiser_dma_f32', n)] = err
-            phase('check_dma', kernel='denoiser_dma_f32', n=n,
-                  max_abs_err=err, rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
-            if not ok:
-                raise RuntimeError(f'denoiser_dma_f32 disagrees with its '
-                                   f'plain version at N={n}')
+            for key in ('denoiser_dma_f32', 'denoiser_dma_f32_fma'):
+                got = KERNELS[key](x, semb, folded)
+                torch.cuda.synchronize()
+                err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
+                bf16_errs[(key, n)] = err
+                phase('check_dma', kernel=key, n=n, max_abs_err=err,
+                      rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+                if not ok:
+                    raise RuntimeError(f'{key} disagrees with its plain '
+                                       f'version at N={n}')
 
         # 9. times at N = 51,200; B2's and B3's through their probe scripts,
         # whose runs are their paths (counts from 0 just before, read just
@@ -483,73 +508,106 @@ def main() -> int:
         g_launches = G.GROUPED.launches
         g_plain = time_ms(lambda: G.grouped_reference(xb, sb, folded))
         g_bytes = 2 * (2 * x.numel() + semb.numel()) + \
-            const_bytes(plan16.mats, plan16.vecs)
+            G.grouped_tc_plan(folded, dev).blob.numel()
         gb_ms, gb_by = bound(flops, g_bytes, bf16_peak, bytes_peak)
         inter = G.intermediate_bytes(folded, N_FOLD)
+        floor_ms, floor_by = bound(flops, g_bytes + inter, bf16_peak,
+                                   bytes_peak)
         phase('time_grouped', n=N_FOLD, kernel_ms=f'{pr["ms"]:.4f}',
-              plain_ms=f'{g_plain:.4f}', bound_ms=f'{gb_ms:.4f}',
-              bound_by=gb_by, b1_bf16_fma_ms=f'{pr["b1_ms"]:.4f}',
-              probe_launches=g_launches, nsub=pr['nsub'], card=repr(card))
+              fma_ms=f'{pr["fma_ms"]:.4f}',
+              b1_bf16_tc_ms=f'{pr["b1_ms"]:.4f}', plain_ms=f'{g_plain:.4f}',
+              bound_ms=f'{gb_ms:.4f}', bound_by=gb_by,
+              bound_share=f'{gb_ms / pr["ms"]:.4f}',
+              design_floor_ms=f'{floor_ms:.4f}', design_floor_by=floor_by,
+              design_floor_share=f'{floor_ms / pr["ms"]:.4f}',
+              probe_launches=g_launches, rows=pr['rows'], card=repr(card))
         phase('time_grouped', intermediate_mbytes=f'{inter / 1e6:.2f}',
-              intermediate_ms_at_peak=f'{inter / bytes_peak * 1e3:.4f}')
-        if g_launches == 0 or g_launches % 5:
-            raise RuntimeError(f'grouped probe path launched {g_launches}')
+              intermediate_ms_at_peak=f'{inter / bytes_peak * 1e3:.4f}',
+              group_ms=json.dumps([round(t, 4) for t in pr['group_ms']]),
+              group_mbytes=json.dumps([round(b / 1e6, 2)
+                                       for b in pr['group_bytes']]))
+        if g_launches != 5 * pr['forwards']:
+            raise RuntimeError(f'grouped probe path launched {g_launches} '
+                               f'for {pr["forwards"]} forwards, not 5 each')
         entries['denoiser_grouped'] = dict(
             dtype='bfloat16', path='probe_grouped_pallas',
-            source=CSRC + 'denoiser_grouped.cu',
+            source=CSRC + 'denoiser_tc_grouped.cu',
             replaces='tools/perf/probe_grouped_pallas.py:111',
             launches=g_launches,
             max_abs_err=bf16_errs[('denoiser_grouped', N_FOLD)],
             ms=pr['ms'], plain_ms=g_plain, bound_ms=gb_ms, bound_by=gb_by)
+        entries['denoiser_grouped_fma'] = dict(
+            dtype='bfloat16', path='yardstick of denoiser_grouped',
+            source=CSRC + 'denoiser_grouped.cu',
+            replaces='tools/perf/probe_grouped_pallas.py:111',
+            max_abs_err=bf16_errs[('denoiser_grouped_fma', N_FOLD)],
+            ms=pr['fma_ms'], plain_ms=g_plain, bound_ms=gb_ms,
+            bound_by=gb_by)
 
-        for dtype, kernel, key in (
-                (torch.float32, D.DMA_PIPELINED_F32, 'denoiser_dma_f32'),
-                (torch.bfloat16, D.DMA_PIPELINED, 'denoiser_dma_bf16')):
+        for dtype, key in ((torch.float32, 'denoiser_dma_f32'),
+                           (torch.bfloat16, 'denoiser_dma_bf16')):
             reset_launches()
             pr = probe_dma_pipeline.probe(dtype, N_FOLD)
-            d_launches = kernel.launches
+            d_launches = KERNELS[key].launches
             d_plain = time_ms(lambda: D.dma_reference(x, semb, folded, dtype))
-            plan = P.kernel_plan(folded, dev, dtype)
-            d_bytes = 4 * (2 * x.numel() + semb.numel()) + \
-                const_bytes(plan.mats, plan.vecs)
-            db_ms, db_by = bound(
-                flops, d_bytes,
-                flops_peak if dtype == torch.float32 else bf16_peak,
-                bytes_peak)
+            if dtype == torch.float32:
+                # 3xTF32 on the tensor cores; the function on the FMA units
+                # beside it (the FMA design's own bound)
+                d_bytes = 4 * (2 * x.numel() + semb.numel()) + \
+                    plan_tc32.blob.numel()
+                db_ms, db_by = bound(3 * flops, d_bytes, tf32_peak,
+                                     bytes_peak)
+                f_plan = P.kernel_plan(folded, dev, dtype)
+                fb_ms, fb_by = bound(
+                    flops, 4 * (2 * x.numel() + semb.numel()) +
+                    const_bytes(f_plan.mats, f_plan.vecs), flops_peak,
+                    bytes_peak)
+            else:
+                d_bytes = 4 * (2 * x.numel() + semb.numel()) + \
+                    D.dma_tc_plan(folded, dev).kernel.blob.numel()
+                db_ms, db_by = bound(flops, d_bytes, bf16_peak, bytes_peak)
+                fb_ms, fb_by = db_ms, db_by
             phase('time_dma', kernel=key, n=N_FOLD,
-                  kernel_ms=f'{pr["ms"]:.4f}', plain_ms=f'{d_plain:.4f}',
+                  kernel_ms=f'{pr["ms"]:.4f}', fma_ms=f'{pr["fma_ms"]:.4f}',
+                  b1_tc_ms=f'{pr["b1_ms"]:.4f}', plain_ms=f'{d_plain:.4f}',
                   bound_ms=f'{db_ms:.4f}', bound_by=db_by,
-                  b1_fma_ms=f'{pr["b1_ms"]:.4f}',
-                  probe_launches=d_launches,
-                  card=repr(card))
-            if d_launches == 0:
-                raise RuntimeError(f'{key} probe path launched nothing')
+                  bound_share=f'{db_ms / pr["ms"]:.4f}',
+                  fma_bound_ms=f'{fb_ms:.4f}',
+                  probe_launches=d_launches, card=repr(card))
+            if d_launches != pr['forwards']:
+                raise RuntimeError(f'{key} probe path launched {d_launches} '
+                                   f'for {pr["forwards"]} forwards')
             entries[key] = dict(
                 dtype=str(dtype)[6:], path='probe_dma_pipeline',
-                source=CSRC + 'denoiser_dma.cu',
+                source=CSRC + ('denoiser_tc_f32.cu' if dtype == torch.float32
+                               else 'denoiser_tc_dma.cu'),
                 replaces='tools/perf/probe_dma_pipeline.py:39',
                 launches=d_launches, max_abs_err=bf16_errs[(key, N_FOLD)],
                 ms=pr['ms'], plain_ms=d_plain, bound_ms=db_ms,
                 bound_by=db_by)
+            entries[key + '_fma'] = dict(
+                dtype=str(dtype)[6:], path=f'yardstick of {key}',
+                source=CSRC + 'denoiser_dma.cu',
+                replaces='tools/perf/probe_dma_pipeline.py:39',
+                max_abs_err=bf16_errs[(key + '_fma', N_FOLD)],
+                ms=pr['fma_ms'], plain_ms=d_plain, bound_ms=fb_ms,
+                bound_by=fb_by)
 
         # 10. the main path at eval_dtype bfloat16
         model16, ds16, res16, counts, seconds, auc = main_path(cfg,
                                                               'bfloat16')
-        launches16 = counts[P.DENOISER_BF16]
+        launches16 = counts['denoiser_bf16']
         phase('main_bf16', windows=len(ds16), batches=n_batches,
-              launches=launches16, float32_launches=counts[P.DENOISER],
-              fma_launches=counts[P.DENOISER_BF16_FMA],
+              launches=launches16, float32_launches=counts['denoiser'],
+              other_launches=sum(counts.values()) - launches16,
               seconds=f'{seconds:.3f}',
               windows_per_s=f'{len(ds16) / seconds:.1f}', auc=f'{auc:.6f}')
-        if launches16 != 9 * n_batches or \
-                sum(counts.values()) != launches16:
-            raise RuntimeError(f'kernel launches on the bfloat16 main path: '
-                               f'{launch_counts()}, expected 9 x '
-                               f'{n_batches} of the tensor-core bfloat16 '
-                               f'kernel only')
+        check_main_launches(counts, 'denoiser_bf16', n_batches, 'bfloat16')
         entries['denoiser_bf16']['launches'] = launches16
-        entries['denoiser_bf16_fma']['launches'] = \
-            counts[P.DENOISER_BF16_FMA]
+        # the yardsticks: their launches on the main paths (checked 0)
+        for key in ('denoiser_bf16_fma', 'denoiser_grouped_fma',
+                    'denoiser_dma_f32_fma', 'denoiser_dma_bf16_fma'):
+            entries[key]['launches'] = counts[key]
 
         # 11. the bfloat16 path through the kernel and the plain version
         r16_kernel, s16_kernel = run(model16)
@@ -576,12 +634,9 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    order = ('denoiser', 'denoiser_f32_fma', 'denoiser_bf16',
-             'denoiser_bf16_fma', 'denoiser_grouped', 'denoiser_dma_f32',
-             'denoiser_dma_bf16')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', **entries[k], library_ms=None)
-        for k in order]}), flush=True)
+        for k in KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -134,6 +134,12 @@
 //     the output buffer.
 //   * Measured: see PERF.md (chip_smoke.py's time phase beside the FMA
 //     design, probe_tc_phases.py's cycles per op).
+//
+// Also kernel B3 at float32: tools/perf/probe_dma_pipeline.py:39
+// build_dma_pipelined_denoiser at compute_dtype=float32, whose function is
+// this one (x, silu_emb and eps float32) and whose structure (persistent
+// blocks, the next tile's inputs copied in while this one computes) this
+// kernel has; its own entry point is mocodad_dma_tc32_launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -694,18 +700,12 @@ denoiser_kernel_tc32(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-}  // namespace mocodad_tc32
-
 // Launch on `stream`: one persistent block per SM (fewer for a small N).
 // Returns the CUDA error code (0 on success); allocates nothing and does
 // not synchronise.
-extern "C" int mocodad_denoiser_tc32_launch(const float* x, const float* semb,
-                                            const char* blob,
-                                            const int* table, float* eps,
-                                            int n, int smem_bytes,
-                                            void* stream) {
-  using namespace mocodad_tc32;
+int launch(const float* x, const float* semb, const char* blob,
+           const int* table, float* eps, int n, int smem_bytes,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       denoiser_kernel_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -721,6 +721,32 @@ extern "C" int mocodad_denoiser_tc32_launch(const float* x, const float* semb,
                          static_cast<cudaStream_t>(stream)>>>(x, semb, blob,
                                                               table, eps, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace mocodad_tc32
+
+// B1 at float32 (its main path).
+extern "C" int mocodad_denoiser_tc32_launch(const float* x, const float* semb,
+                                            const char* blob,
+                                            const int* table, float* eps,
+                                            int n, int smem_bytes,
+                                            void* stream) {
+  return mocodad_tc32::launch(x, semb, blob, table, eps, n, smem_bytes,
+                              stream);
+}
+
+// B3 at float32 (tools/perf/probe_dma_pipeline.py:39 at compute_dtype
+// float32): B3's function at float32 is B1's, and this kernel already walks
+// the tiles in persistent blocks with the next tile's x and silu_emb
+// prefetched by cp.async, B3's structure.  The same kernel on the same plan,
+// under B3's name, so that its launches are counted apart from B1's.
+extern "C" int mocodad_dma_tc32_launch(const float* x, const float* semb,
+                                       const char* blob, const int* table,
+                                       float* eps, int n, int smem_bytes,
+                                       void* stream) {
+  return mocodad_tc32::launch(x, semb, blob, table, eps, n, smem_bytes,
+                              stream);
 }
 
 // The plan this build reads: rows per tile, warps per block, the longest

@@ -28,7 +28,10 @@ tensor-core kernels' constants.
 
 The grouped (B2, `ops/grouped_unet.py`) and DMA-pipelined (B3,
 `ops/dma_unet.py`) kernels compute the same function from the same packed
-constants; their tables come from `pack_layers` and `plan_arena` here.
+constants.  Their FMA designs' tables come from `pack_layers` and
+`plan_arena` here; on the tensor cores B2's come from `tc_ops` and
+`tc_row_plan`, the bfloat16 tensor-core kernels' op records and row
+layout, over a sub-range of B1's ops, and B3 runs B1's plans.
 """
 
 from __future__ import annotations
@@ -567,13 +570,18 @@ TC_UNIT_TILES = (2, 4, 8)            # 8-channel output tiles per unit it
                                      # instantiates
 
 
-def tc_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool) -> int:
+def tc_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool,
+              round_g: bool = False) -> int:
     """Parts of C_out for one ST-GCNN layer's units: the split that makes
     the busiest warp's MMA count least (rounds of units over TC_WARPS
-    warps, each unit recomputing its graph mix), fewest parts on a tie."""
+    warps, each unit recomputing its graph mix), fewest parts on a tie.
+    The channel mix takes two MMAs per output tile (g_hi and g_lo), one
+    with `round_g` (B2), plus one for a residual mix."""
+    mix = (1 if round_g else 2) + (1 if res else 0)
+
     def cost(ns):
-        per_unit = chunks * (2 * ks + (3 if res else 2) * nt // ns)
-        return -(-units * ns // TC_WARPS) * per_unit
+        return -(-units * ns // TC_WARPS) * tc_unit_mmas(chunks, ks,
+                                                         mix * nt // ns)
     fits = [ns for ns in (1, 2, 4) if nt % ns == 0
             and nt // ns in TC_UNIT_TILES]
     if not fits:
@@ -581,6 +589,12 @@ def tc_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool) -> int:
                          f'{8 * nt} output channels into units of '
                          f'{[8 * t for t in TC_UNIT_TILES]}')
     return min(fits, key=lambda ns: (cost(ns), ns))
+
+
+def tc_unit_mmas(chunks: int, ks: int, mix: int) -> int:
+    """MMAs of one unit: per 16-channel chunk of C_in, 2 per 16-position
+    step of the graph mix and `mix` for the channel mix."""
+    return chunks * (2 * ks + mix)
 
 
 def pad16(n: int) -> int:
@@ -644,40 +658,48 @@ class TcPlan:
                       smem_bytes=self.smem_bytes)
 
 
-def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
-    """Lay the folded constants out for `csrc/denoiser_tc.cu` and plan its
-    shared memory (offsets in bytes, strides in bf16 elements).
+def tc_channels(folded: FoldedDenoiser) -> List[int]:
+    """C_in, then the output channels of each of B1's ops in
+    `layer_sequence` order (a joint re-scaling keeps its input's)."""
+    chans = [folded.c_in]
+    for kind, i, _, _ in layer_sequence(folded):
+        chans.append(folded.gcn[i].w2.shape[0] if kind == 0 else chans[-1])
+    return chans
 
-    Each op's constants are one 16-byte aligned block of the blob, copied
-    whole into a weight buffer: an ST-GCNN layer's K (T*V_out, T*V_in), W
-    and Wr (C_out, C_in) as zero-padded bf16 tiles of `tc_stride` columns,
-    bias and slope float32; a joint re-scaling's dense (T*V_out, T*V_in)
-    operator and its per-row affine.  Every layer's W_e (C_out, E) bf16,
-    stacked and transposed to (E, sum of C_out), then its b_e float32, form
-    the blob's last block, staged once per block.  Shared memory: two
-    weight buffers of the largest op's size, the stacked W_e and b_e,
-    every layer's embedding (TC_ROWS x the stacked C_out, float32), then
-    TC_ROWS row areas of x, the skips d1 and d2, silu_emb (float32) and a
-    work area whose two ends alternate as layer input and output."""
-    seq = layer_sequence(folded)
-    e_dim, cin = folded.embedding_dim, folded.c_in
+
+def tc_ops(folded: FoldedDenoiser, lo: int = 0, hi: Optional[int] = None,
+           rows: int = TC_ROWS, round_g: bool = False
+           ) -> Tuple[List[dict], List['_Blob'], List[np.ndarray],
+                      List[np.ndarray]]:
+    """The bfloat16 tensor-core kernels' op records for B1's ops [lo, hi)
+    (arena offsets unset), each op's constants as one _Blob (its record's
+    'blob' counts from the range's first op), and the range's layers' W_e
+    (C_out padded to 16, E) as bf16 bits and b_e; a record's 'emb' is its
+    layer's first column among the range's layers.  An ST-GCNN layer's K
+    (T*V_out, T*V_in), W and Wr (C_out, C_in) are zero-padded bf16 tiles of
+    `tc_stride` columns, bias and slope float32; a joint re-scaling's dense
+    (T*V_out, T*V_in) operator and its per-row affine.  C_out is split for
+    `rows` fold rows per tile (`tc_nsplit`, one MMA per W fragment with
+    `round_g`)."""
+    seq = layer_sequence(folded)[lo:hi]
+    e_dim = folded.embedding_dim
+    chans = tc_channels(folded)[lo:]
     ops, blocks = [], []
-    chans = [cin]                    # channels of each op's input, then out
-    emb_w, emb_b = [], []            # every layer's W_e and b_e, stacked
-    for kind, i, tvi, tvo in seq:
+    emb_w, emb_b = [], []            # the range's layers' W_e and b_e
+    for k, (kind, i, tvi, tvo) in enumerate(seq):
         b = _Blob()
-        ci = chans[-1]
+        ci, co = chans[k], chans[k + 1]
         o = dict(kind=kind, tvi=tvi, tvo=tvo, mt=pad16(tvo) // 16,
                  ks=pad16(tvi) // 16, ci=pad16(ci), res=0,
                  k_stride=tc_stride(tvi), w=-1, w_stride=0, wr=-1, bias=-1,
                  slope=-1, rs=-1, rt=-1, emb=-1)
         if kind == 0:
             w = folded.gcn[i]
-            co = w.w2.shape[0]
             cop = pad16(co)
             o.update(nt=cop // 8, res=int(w.wr2 is not None),
-                     nsplit=tc_nsplit(TC_ROWS * o['mt'], pad16(ci) // 16,
-                                      o['ks'], cop // 8, w.wr2 is not None),
+                     nsplit=tc_nsplit(rows * o['mt'], pad16(ci) // 16,
+                                      o['ks'], cop // 8, w.wr2 is not None,
+                                      round_g),
                      k=b.tile(w.k2, pad16(tvo), tc_stride(tvi)),
                      w=b.tile(w.w2, cop, tc_stride(ci)),
                      w_stride=tc_stride(ci))
@@ -694,27 +716,33 @@ def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
             emb_b.append(eb)
         else:
             j = folded.joint[i]
-            co = ci
             o.update(nt=pad16(ci) // 8, nsplit=1,
                      k=b.tile(j.d2, pad16(tvo), tc_stride(tvi)),
                      rs=b.vec(j.rs, pad16(tvo)), rt=b.vec(j.rt, pad16(tvo)))
-        chans.append(co)
         o.update(blob=sum(x.size for x in blocks), blob_bytes=b.size,
                  c_in=ci, c_out=co)
         blocks.append(b)
         ops.append(o)
+    return ops, blocks, emb_w, emb_b
 
-    # one row's area: fixed regions, then the work area
-    regions = [('x', tc_act_bytes(seq[0][2], cin)),
-               ('d1', tc_act_bytes(seq[2][3], chans[3])),
-               ('d2', tc_act_bytes(seq[5][3], chans[6])),
-               ('semb', -(-e_dim * 4 // 16) * 16)]
+
+def tc_row_plan(ops: List[dict], regions: Sequence[Tuple[str, int]],
+                first: str, dst: Optional[Dict[int, str]] = None,
+                skip: Optional[Dict[int, str]] = None
+                ) -> Tuple[Dict[str, int], int]:
+    """Lay out one fold row's area (bytes) for the bf16 tensor-core ops:
+    the fixed `regions` (name, bytes) in order, then a work area whose two
+    ends alternate as layer input and output.  `first` names the region
+    that holds the first op's input, `dst` maps op index -> the region it
+    writes, `skip` op index -> the region a joint op adds.  Sets every op's
+    'in', 'out', 'skip' and strides; returns the regions' offsets and the
+    row's bytes."""
+    dst, skip = dst or {}, skip or {}
     off, total = {}, 0
     for name, size in regions:
         off[name] = total
         total += size
-    dst, skip = {2: 'd1', 5: 'd2'}, {9: 'd2', 12: 'd1'}
-    where, sides, work = 'x', [], 0
+    where, sides, work = first, [], 0
     for k, o in enumerate(ops):
         s_in = tc_act_bytes(o['tvi'], o['c_in'])
         s_out = tc_act_bytes(o['tvo'], o['c_out'])
@@ -735,12 +763,49 @@ def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
              'out': at(out, s_out), 'out_stride': tc_stride(o['c_out']),
              'skip': off[skip[k]] if k in skip else -1,
              'skip_stride': tc_stride(o['c_out']) if k in skip else 0})
-    row_bytes = total + work
-    wbuf = max(b.size for b in blocks)
+    return off, total + work
+
+
+def tc_embw(emb_w: List[np.ndarray], emb_b: List[np.ndarray]
+            ) -> Tuple['_Blob', int]:
+    """The layers' W_e stacked and transposed to (E, sum of C_out) bf16,
+    then their b_e float32, as one block; and that sum (the embeddings'
+    stride)."""
     embw = _Blob()
     embw.add(np.ascontiguousarray(np.concatenate(emb_w).T))
     embw.add(np.concatenate(emb_b))
-    emb_stride = sum(a.shape[0] for a in emb_w)
+    return embw, sum(a.shape[0] for a in emb_w)
+
+
+def tc_semb_bytes(e_dim: int) -> int:
+    """Bytes of one row's silu_emb as float32, 16-byte aligned."""
+    return -(-e_dim * 4 // 16) * 16
+
+
+def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
+    """Lay the folded constants out for `csrc/denoiser_tc.cu` and plan its
+    shared memory (offsets in bytes, strides in bf16 elements).
+
+    Each op's constants are one 16-byte aligned block of the blob, copied
+    whole into a weight buffer (`tc_ops`).  Every layer's W_e (C_out, E)
+    bf16, stacked and transposed to (E, sum of C_out), then its b_e float32,
+    form the blob's last block, staged once per block.  Shared memory: two
+    weight buffers of the largest op's size, the stacked W_e and b_e,
+    every layer's embedding (TC_ROWS x the stacked C_out, float32), then
+    TC_ROWS row areas of x, the skips d1 and d2, silu_emb (float32) and a
+    work area whose two ends alternate as layer input and output."""
+    seq = layer_sequence(folded)
+    e_dim, cin = folded.embedding_dim, folded.c_in
+    chans = tc_channels(folded)
+    ops, blocks, emb_w, emb_b = tc_ops(folded)
+    off, row_bytes = tc_row_plan(
+        ops, [('x', tc_act_bytes(seq[0][2], cin)),
+              ('d1', tc_act_bytes(seq[2][3], chans[3])),
+              ('d2', tc_act_bytes(seq[5][3], chans[6])),
+              ('semb', tc_semb_bytes(e_dim))],
+        'x', dst={2: 'd1', 5: 'd2'}, skip={9: 'd2', 12: 'd1'})
+    wbuf = max(b.size for b in blocks)
+    embw, emb_stride = tc_embw(emb_w, emb_b)
     embw_off = 2 * wbuf
     emb_off = embw_off + embw.size
     row0 = emb_off + TC_ROWS * emb_stride * 4

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -96,12 +97,13 @@ def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
 SOURCES = {
     'bf16': ('denoiser_tc.cu', 'mocodad_tc', _patches(
         'mocodad_tc', '    load_tile(tid, sm, t, x, semb, n, n0);',
-        '    embed_all(tid, sm, t);',
+        '    embed_all<kRows>(tid, sm, t, kRows);',
         '      cp_async_wait_all();\n'
         '      __syncthreads();   // this op\'s constants and the last op\'s '
         'output',
-        '      run_op(tid, sm, t, ops + op * O_LEN, wbuf[buf]);',
-        '  for (int u = warp; u < kRows * mt * ns; u += kWarps) {',
+        '      run_op<false>(tid, sm, t, ops + op * O_LEN, wbuf[buf], '
+        'kRows);',
+        '  for (int u = warp; u < rows * mt * ns; u += kWarps) {',
         '            p < tvo ? pack(acc[j][2 * h], acc[j][2 * h + 1]) : 0u;\n'
         '      }\n    }\n')),
     'f32': ('denoiser_tc_f32.cu', 'mocodad_tc32', _patches(
@@ -130,12 +132,22 @@ extern "C" int mocodad_probe_read(unsigned long long* host) {
 '''
 
 
+def inline_headers(src: str) -> str:
+    """`src` with each `#include "<name>.cuh"` replaced by that header's
+    text from csrc/, so that anchors in a shared header are patched in
+    this kernel's copy of its code only."""
+    def text(m):
+        with open(os.path.join(build.CSRC_DIR, m.group(1))) as f:
+            return f.read()
+    return re.sub(r'#include "(\w+\.cuh)"\n', text, src)
+
+
 def instrumented_source(which: str = 'bf16') -> str:
     """The source (`which`: 'bf16' or 'f32') with the counters; raises if it
     no longer has an anchor the probe patches."""
     name, namespace, patches = SOURCES[which]
     with open(os.path.join(build.CSRC_DIR, name)) as f:
-        src = f.read()
+        src = inline_headers(f.read())
     for anchor, text in patches:
         if src.count(anchor) != 1:
             raise RuntimeError(f'{name} changed: the probe finds '

@@ -9,6 +9,11 @@ CPU with its kernels' plain versions.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+import os
+import sys
+
 import jax
 import numpy as np
 import torch
@@ -17,7 +22,10 @@ from mocodad_tpu.config import Config as JaxConfig
 from mocodad_tpu.models import MoCoDADModel as JaxModel
 from mocodad_tpu_torch.config import Config as TorchConfig
 from mocodad_tpu_torch.models.mocodad import MoCoDADModel as TorchModel
+from mocodad_tpu_torch.ops import pallas_unet as P
 from mocodad_tpu_torch.utils.weights import state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # several test workers share a small host
 torch.set_num_threads(1)
@@ -116,3 +124,208 @@ def torch_net(model: TorchModel, variables):
     net = model.build_net()
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
     return net.eval()
+
+
+# ---------------------------------------------------------------------------
+# The JAX repository's TPU probes of B2 and B3 (tools/perf/), on the CPU
+# ---------------------------------------------------------------------------
+
+GROUPED_PROBE = os.path.join(REPO, 'tools', 'perf', 'probe_grouped_pallas.py')
+GROUPED_MARKER = '# ---- parity + timing'
+DMA_PROBE = os.path.join(REPO, 'tools', 'perf', 'probe_dma_pipeline.py')
+
+
+def grouped_probe():
+    """Generator for a module fixture: the B2 probe's namespace (its Config,
+    variables, folded layers, K1 .. K5 and `grouped`), built with NB = 8 and
+    every pallas_call interpreted.  The probe runs TPU code at module level
+    from its `# ---- parity + timing` marker on, so only its source up to
+    the marker is executed; sys.path, the environment, pallas_call and the
+    JAX cache settings that its top lines change are restored after."""
+    from jax.experimental import pallas as pl
+    with open(GROUPED_PROBE) as f:
+        src = f.read()
+    src = src[:src.index(GROUPED_MARKER)]
+    saved_path, saved_env = list(sys.path), dict(os.environ)
+    saved_cache = (jax.config.jax_compilation_cache_dir,
+                   jax.config.jax_persistent_cache_min_compile_time_secs)
+    saved_call = pl.pallas_call
+    os.environ['NB'] = '8'
+    if saved_cache[0]:               # keep the tests' compilation cache
+        os.environ['JAX_COMPILATION_CACHE_DIR'] = saved_cache[0]
+    pl.pallas_call = functools.partial(saved_call, interpret=True)
+    try:
+        ns = {'__file__': GROUPED_PROBE, '__name__': 'probe_grouped_pallas'}
+        exec(compile(src, GROUPED_PROBE, 'exec'), ns)
+        yield ns
+    finally:
+        pl.pallas_call = saved_call
+        sys.path[:] = saved_path
+        os.environ.clear()
+        os.environ.update(saved_env)
+        jax.config.update('jax_compilation_cache_dir', saved_cache[0])
+        jax.config.update('jax_persistent_cache_min_compile_time_secs',
+                          saved_cache[1])
+
+
+def dma_probe():
+    """The B3 probe imported from its file; its import-time edits of
+    sys.path and the environment are undone."""
+    saved_path, saved_env = list(sys.path), dict(os.environ)
+    try:
+        spec = importlib.util.spec_from_file_location('probe_dma_pipeline',
+                                                      DMA_PROBE)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    finally:
+        sys.path[:] = saved_path
+        os.environ.clear()
+        os.environ.update(saved_env)
+    return module
+
+
+# ---------------------------------------------------------------------------
+# A NumPy emulation of the bfloat16 tensor-core kernels' arithmetic
+# (csrc/denoiser_tc_body.cuh), driven by their packed tables
+# ---------------------------------------------------------------------------
+
+def to_bits(a):
+    """float -> bfloat16 bit patterns, to nearest even."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def from_bits(u):
+    return (np.asarray(u, np.uint16).astype(np.uint32) << 16).view(
+        np.float32).astype(np.float64)
+
+
+def bf16(a):
+    return from_bits(to_bits(a))
+
+
+def smem_tile(sm, off, nrows, stride):
+    """A view of shared memory bytes as a (nrows, stride) bf16 tile."""
+    return sm[off:off + nrows * stride * 2].view(np.uint16).reshape(
+        nrows, stride)
+
+
+def smem_f32(sm, off, size):
+    return sm[off:off + 4 * size].view(np.float32)
+
+
+def table_records(table, header, op=P.TC_OP, skip=0):
+    """(header dict, op record dicts) of an int32 table: `header` fields,
+    then `skip` ints, then the op records."""
+    t = np.asarray(table)
+    h = dict(zip(header, t[:len(header)]))
+    base, no = len(header) + skip, len(op)
+    return h, [dict(zip(op, t[base + i * no:base + (i + 1) * no]))
+               for i in range(h['nops'])]
+
+
+def tc_embed(sm, h, rows_at):
+    """Every layer's embedding for the tile's rows, from the staged W_e
+    and b_e and each row's silu_emb (embed_all)."""
+    e, es = h['e'], h['emb_stride']
+    we = from_bits(smem_tile(sm, h['embw_off'], e, es)).T
+    eb = smem_f32(sm, h['embw_off'] + es * e * 2, es)
+    for r, at in enumerate(rows_at):
+        smem_f32(sm, h['emb_off'] + r * es * 4, es)[:] = \
+            we @ smem_f32(sm, at + h['semb_off'], e) + eb
+
+
+def tc_op(sm, h, o, rows_at, wb, round_g):
+    """One op record (gcn_op or joint_op) over the tile's rows, from the
+    constants in the weight buffer at `wb`: the products as the MMAs take
+    them (f32 sums of exact bf16 products), g rounded to bf16 before the
+    channel mix (`round_g`, B2) or split into bf16 hi + lo (B1), rounding
+    at the kernels' points, 0 past T*V."""
+    es = h['emb_stride']
+    tvop, tvip = 16 * o['mt'], 16 * o['ks']
+    ci, cop = o['ci'], 8 * o['nt']
+    kop = from_bits(smem_tile(sm, wb + o['k'], tvop, o['k_stride'])[:, :tvip])
+    for r, at in enumerate(rows_at):
+        f = from_bits(smem_tile(sm, at + o['in'], tvip,
+                                o['in_stride'])[:, :ci])
+        g = (kop @ f).astype(np.float32)                 # (TVo_p, Ci_p)
+        if o['kind'] == 0:
+            w = from_bits(smem_tile(sm, wb + o['w'], cop,
+                                    o['w_stride'])[:, :ci])
+            if round_g:
+                y = bf16(g) @ w.T
+            else:
+                hi = bf16(g)
+                y = hi @ w.T + bf16(g - hi) @ w.T
+            y = y.astype(np.float32).astype(np.float64)
+            if o['res']:
+                wr = from_bits(smem_tile(sm, wb + o['wr'], cop,
+                                         o['w_stride'])[:, :ci])
+                y = y + f[:tvop] @ wr.T
+            else:
+                y = y + f[:tvop, :cop]
+            emb = smem_f32(sm, h['emb_off'] + (r * es + o['emb']) * 4, cop)
+            y = y + smem_f32(sm, wb + o['bias'], cop)
+            slope = smem_f32(sm, wb + o['slope'], 1)[0]
+            y = bf16(np.where(y >= 0, y, slope * y) + emb)
+        else:
+            y = bf16(g * smem_f32(sm, wb + o['rs'], tvop)[:, None]
+                     + smem_f32(sm, wb + o['rt'], tvop)[:, None])
+            if o['skip'] >= 0:
+                y = bf16(y + from_bits(smem_tile(
+                    sm, at + o['skip'], tvop, o['skip_stride'])[:, :ci]))
+        y[o['tvo']:] = 0
+        smem_tile(sm, at + o['out'], tvop, o['out_stride'])[:, :y.shape[1]] \
+            = to_bits(y)
+
+
+def tc_ops(sm, h, ops, blob, rows_at, round_g):
+    """Every op in turn, its constants copied from the blob into the two
+    weight buffers alternately."""
+    for k, o in enumerate(ops):
+        wb = h['wbuf0'] if k % 2 == 0 else h['wbuf1']
+        sm[wb:wb + o['blob_bytes']] = blob[o['blob']:o['blob'] +
+                                           o['blob_bytes']]
+        tc_op(sm, h, o, rows_at, wb, round_g)
+
+
+def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
+    """csrc/denoiser_tc.cu (B1 bfloat16) on one tile of P.TC_ROWS fold rows
+    from row n0 of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as
+    bytes that start as NaN (0xff), the constants copied from the blob,
+    x and silu_emb rounded to bf16, the ops as `tc_op`.  Returns eps
+    (C_in, T*V, rows) for the rows below N: bf16(f + x), or with
+    `round_eps` False f + x in float32 (csrc/denoiser_tc_dma.cu, B3)."""
+    h, ops = table_records(plan.table, P.TC_HEADER)
+    blob = plan.blob.numpy()
+    sm = np.full(smem_bytes or plan.smem_bytes, 0xff, np.uint8)
+    rows, n = P.TC_ROWS, x.shape[2]
+    nv = max(0, min(rows, n - n0))
+    rows_at = [h['row0'] + r * h['row_bytes'] for r in range(rows)]
+    cin, tva, e = h['cin'], h['tva'], h['e']
+    for r, at in enumerate(rows_at):
+        xt = smem_tile(sm, at + h['x_off'], h['tvap'], h['x_stride'])
+        xt[:, :h['x_stride'] - 8] = 0
+        if r < nv:
+            xt[:tva, :cin] = to_bits(x[:, :, n0 + r].T)
+        smem_f32(sm, at + h['semb_off'], e)[:] = \
+            bf16(semb[:, n0 + r]) if r < nv else 0
+    sm[h['embw_off']:h['embw_off'] + h['embw_bytes']] = \
+        blob[h['embw_blob']:h['embw_blob'] + h['embw_bytes']]
+    tc_embed(sm, h, rows_at)
+    tc_ops(sm, h, ops, blob, rows_at, round_g=False)
+    eps = np.zeros((cin, tva, nv))
+    for r in range(nv):
+        out = from_bits(smem_tile(sm, rows_at[r] + h['out_off'], h['tvap'],
+                                  h['out_stride'])[:tva, :cin])
+        x0 = from_bits(smem_tile(sm, rows_at[r] + h['x_off'], h['tvap'],
+                                 h['x_stride'])[:tva, :cin])
+        eps[:, :, r] = (bf16(out + x0) if round_eps else
+                        (out + x0).astype(np.float32)).T
+    return eps
+
+
+def emulate_tc_all(plan, x, semb, **kw):
+    n = x.shape[2]
+    return np.concatenate([emulate_tc(plan, x, semb, n0, **kw)
+                           for n0 in range(0, n, P.TC_ROWS)], axis=2)

@@ -1,7 +1,7 @@
 """B1 at bfloat16 on the tensor cores (`csrc/denoiser_tc.cu`): a NumPy
-emulation of the kernel's arithmetic, driven only by what
-`pack_for_tc_kernel` packs, against the plain version and the JAX Pallas
-kernel in interpret mode; the hi/lo split of g; the shared-memory plan;
+emulation of the kernel's arithmetic (`_torch_port.emulate_tc`), driven
+only by what `pack_for_tc_kernel` packs, against the plain version and the
+JAX Pallas kernel in interpret mode; the hi/lo split of g; the shared-memory plan;
 and the routing of a CPU tensor."""
 
 import os
@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (bf16_stats, jax_model, seeded_variables,
+from _torch_port import (bf16, bf16_stats, emulate_tc_all, from_bits,
+                         jax_model, seeded_variables, table_records,
                          torch_model, torch_net)
 from mocodad_tpu.ops.pallas_unet import build_pallas_denoiser
 from mocodad_tpu_torch.ops import pallas_unet as P
@@ -52,122 +53,8 @@ def _inputs(n, seed):
     return x, (s / (1 + np.exp(-s))).astype(np.float32)     # silu
 
 
-def to_bits(a):
-    """float -> bfloat16 bit patterns, to nearest even."""
-    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
-    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
-
-
-def from_bits(u):
-    return (np.asarray(u, np.uint16).astype(np.uint32) << 16).view(
-        np.float32).astype(np.float64)
-
-
-def bf16(a):
-    return from_bits(to_bits(a))
-
-
 def _records(plan):
-    table = plan.table.numpy()
-    nh, no = len(P.TC_HEADER), len(P.TC_OP)
-    h = dict(zip(P.TC_HEADER, table[:nh]))
-    ops = [dict(zip(P.TC_OP, table[nh + i * no:nh + (i + 1) * no]))
-           for i in range(h['nops'])]
-    return h, ops
-
-
-def emulate(plan, x, semb, n0=0):
-    """csrc/denoiser_tc.cu on one tile of P.TC_ROWS fold rows from row n0
-    of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as bytes that
-    start as NaN (0xff), each op's constants copied from the blob into its
-    weight buffer and the stacked W_e and b_e into theirs, every layer's
-    embedding computed first, activations as bf16 (T*V, C) tiles read back
-    through the table's offsets and strides, the products as the MMAs take
-    them (f32 sums of exact bf16 products; g split into bf16 hi + lo before
-    the channel mix), rounding at B1's points.  Returns eps (C_in, T*V, rows)
-    for the rows below N."""
-    h, ops = _records(plan)
-    blob = plan.blob.numpy()
-    sm = np.full(plan.smem_bytes, 0xff, np.uint8)
-    rows, n = P.TC_ROWS, x.shape[2]
-    nv = max(0, min(rows, n - n0))
-
-    def tile(off, nrows, stride):           # a view of bf16 bits
-        return sm[off:off + nrows * stride * 2].view(np.uint16).reshape(
-            nrows, stride)
-
-    def f32(off, size):
-        return sm[off:off + 4 * size].view(np.float32)
-
-    def row(r):
-        return h['row0'] + r * h['row_bytes']
-
-    cin, tva, e = h['cin'], h['tva'], h['e']
-    for r in range(rows):
-        xt = tile(row(r) + h['x_off'], h['tvap'], h['x_stride'])
-        xt[:, :h['x_stride'] - 8] = 0
-        if r < nv:
-            xt[:tva, :cin] = to_bits(x[:, :, n0 + r].T)
-        f32(row(r) + h['semb_off'], e)[:] = \
-            bf16(semb[:, n0 + r]) if r < nv else 0
-    es = h['emb_stride']
-    sm[h['embw_off']:h['embw_off'] + h['embw_bytes']] = \
-        blob[h['embw_blob']:h['embw_blob'] + h['embw_bytes']]
-    we = from_bits(tile(h['embw_off'], e, es)).T
-    eb = f32(h['embw_off'] + es * e * 2, es)
-    for r in range(rows):
-        f32(h['emb_off'] + r * es * 4, es)[:] = \
-            we @ f32(row(r) + h['semb_off'], e) + eb
-    for k, o in enumerate(ops):
-        wb = h['wbuf0'] if k % 2 == 0 else h['wbuf1']
-        sm[wb:wb + o['blob_bytes']] = \
-            blob[o['blob']:o['blob'] + o['blob_bytes']]
-        tvop, tvip = 16 * o['mt'], 16 * o['ks']
-        ci, cop = o['ci'], 8 * o['nt']
-        kop = from_bits(tile(wb + o['k'], tvop, o['k_stride'])[:, :tvip])
-        for r in range(rows):
-            f = from_bits(tile(row(r) + o['in'], tvip,
-                               o['in_stride'])[:, :ci])
-            g = (kop @ f).astype(np.float32)             # (TVo_p, Ci_p)
-            if o['kind'] == 0:
-                hi = bf16(g)
-                lo = bf16(g - hi)
-                w = from_bits(tile(wb + o['w'], cop, o['w_stride'])[:, :ci])
-                y = (hi @ w.T + lo @ w.T).astype(np.float32).astype(
-                    np.float64)
-                if o['res']:
-                    wr = from_bits(tile(wb + o['wr'], cop,
-                                        o['w_stride'])[:, :ci])
-                    y = y + f[:tvop] @ wr.T
-                else:
-                    y = y + f[:tvop, :cop]
-                emb = f32(h['emb_off'] + (r * es + o['emb']) * 4, cop)
-                y = y + f32(wb + o['bias'], cop)
-                slope = f32(wb + o['slope'], 1)[0]
-                y = bf16(np.where(y >= 0, y, slope * y) + emb)
-            else:
-                y = bf16(g * f32(wb + o['rs'], tvop)[:, None]
-                         + f32(wb + o['rt'], tvop)[:, None])
-                if o['skip'] >= 0:
-                    y = bf16(y + from_bits(tile(row(r) + o['skip'], tvop,
-                                                o['skip_stride'])[:, :ci]))
-            y[o['tvo']:] = 0
-            tile(row(r) + o['out'], tvop, o['out_stride'])[:, :y.shape[1]] \
-                = to_bits(y)
-    eps = np.zeros((cin, tva, nv))
-    for r in range(nv):
-        out = from_bits(tile(row(r) + h['out_off'], h['tvap'],
-                             h['out_stride'])[:tva, :cin])
-        x0 = from_bits(tile(row(r) + h['x_off'], h['tvap'],
-                            h['x_stride'])[:tva, :cin])
-        eps[:, :, r] = bf16(out + x0).T
-    return eps
-
-
-def emulate_all(plan, x, semb):
-    n = x.shape[2]
-    return np.concatenate([emulate(plan, x, semb, n0)
-                           for n0 in range(0, n, P.TC_ROWS)], axis=2)
+    return table_records(plan.table, P.TC_HEADER)
 
 
 @pytest.mark.parametrize('n', [16, 13], ids=['aligned', 'ragged'])
@@ -175,7 +62,7 @@ def test_tc_emulation_matches_plain_version_and_pallas(weights, n):
     denoise, folded, plan = weights
     x, semb = _inputs(n, seed=n + 20)
     xb = torch.from_numpy(x).bfloat16()
-    got = emulate_all(plan, xb.float().numpy(), semb)
+    got = emulate_tc_all(plan, xb.float().numpy(), semb)
     assert got.shape == (2, 51, n) and np.isfinite(got).all()
     plain = P.denoise_reference(xb, torch.from_numpy(semb), folded,
                                 compute_dtype=torch.bfloat16)

@@ -3,22 +3,16 @@ repository's probe `build_dma_pipelined_denoiser`
 (tools/perf/probe_dma_pipeline.py) in interpret mode, in float32 and in
 bfloat16, on a ragged N, and the wrapper's routing on the CPU."""
 
-import importlib.util
-import os
-import sys
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import (bf16_stats, jax_model, seeded_variables,
-                         torch_model, torch_net)
+from _torch_port import (bf16_stats, dma_probe, jax_model,
+                         seeded_variables, torch_model, torch_net)
 from mocodad_tpu_torch.ops import dma_unet as D
 from mocodad_tpu_torch.ops import pallas_unet as P
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROBE = os.path.join(REPO, 'tools', 'perf', 'probe_dma_pipeline.py')
 # float32: the same function, sums in another order
 RTOL, ATOL = 1e-4, 1e-5
 # bfloat16: as tests/test_torch_denoiser_bf16.py (eps is float32 here, so
@@ -30,17 +24,7 @@ MAX_REL, MEAN_REL = 1.5e-2, 1e-3
 def probe():
     """The probe imported from its file; its import-time edits of sys.path
     and the environment are undone."""
-    saved_path, saved_env = list(sys.path), dict(os.environ)
-    try:
-        spec = importlib.util.spec_from_file_location('probe_dma_pipeline',
-                                                      PROBE)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-    finally:
-        sys.path[:] = saved_path
-        os.environ.clear()
-        os.environ.update(saved_env)
-    return module
+    return dma_probe()
 
 
 @pytest.fixture(scope='module')

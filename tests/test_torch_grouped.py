@@ -5,28 +5,20 @@ the CPU.
 
 The probe runs TPU code at module level from its `# ---- parity +
 timing` marker on, so only its source up to that marker is executed, with
-NB = 8 and `pallas_call` in interpret mode; both are restored after the
-module's tests.
+NB = 8 and `pallas_call` in interpret mode (`_torch_port.grouped_probe`);
+both are restored after the module's tests.
 """
-
-import functools
-import os
-import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
-from _torch_port import bf16_stats, torch_model, torch_net
+from _torch_port import bf16_stats, grouped_probe, torch_model, torch_net
 from mocodad_tpu_torch.ops import grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROBE = os.path.join(REPO, 'tools', 'perf', 'probe_grouped_pallas.py')
-MARKER = '# ---- parity + timing'
 # bfloat16 on both sides at the same rounding points (B2's), sums in
 # another order: as tests/test_torch_denoiser_bf16.py
 MAX_REL, MEAN_REL = 1.5e-2, 1e-3
@@ -36,29 +28,7 @@ MAX_REL, MEAN_REL = 1.5e-2, 1e-3
 def probe():
     """The probe's namespace: its Config, variables, folded layers and
     `grouped`, built with NB = 8 and every pallas_call interpreted."""
-    with open(PROBE) as f:
-        src = f.read()
-    src = src[:src.index(MARKER)]
-    saved_path, saved_env = list(sys.path), dict(os.environ)
-    saved_cache = (jax.config.jax_compilation_cache_dir,
-                   jax.config.jax_persistent_cache_min_compile_time_secs)
-    saved_call = pl.pallas_call
-    os.environ['NB'] = '8'
-    if saved_cache[0]:               # keep the tests' compilation cache
-        os.environ['JAX_COMPILATION_CACHE_DIR'] = saved_cache[0]
-    pl.pallas_call = functools.partial(saved_call, interpret=True)
-    try:
-        ns = {'__file__': PROBE, '__name__': 'probe_grouped_pallas'}
-        exec(compile(src, PROBE, 'exec'), ns)
-        yield ns
-    finally:
-        pl.pallas_call = saved_call
-        sys.path[:] = saved_path
-        os.environ.clear()
-        os.environ.update(saved_env)
-        jax.config.update('jax_compilation_cache_dir', saved_cache[0])
-        jax.config.update('jax_persistent_cache_min_compile_time_secs',
-                          saved_cache[1])
+    yield from grouped_probe()
 
 
 @pytest.fixture(scope='module')

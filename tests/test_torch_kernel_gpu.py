@@ -1,7 +1,7 @@
 """The CUDA denoiser kernels on the card, against their plain versions:
-B1 in float32 and bfloat16 (the tensor-core kernels, 3xTF32 and bf16, and
-the FMA design kept as their yardstick), B2 (grouped, bfloat16) and B3
-(DMA-pipelined, float32 and bfloat16).
+B1 in float32 and bfloat16, B2 (grouped, bfloat16) and B3 (DMA-pipelined,
+float32 and bfloat16), each on the tensor cores and in the FMA design kept
+as its yardstick.
 
 These tests need a CUDA device and skip without one (the kernel has no
 CPU mode).  They import neither JAX nor the JAX package, so they also run
@@ -201,10 +201,23 @@ def test_tc_library_runs_on_the_tensor_cores(folded):
 def test_grouped_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n + 2)
     xb, sb = x.bfloat16(), semb.bfloat16()
-    before = G.GROUPED.launches
+    kernels = (G.GROUPED, G.GROUPED_FMA)
+    before = [k.launches for k in kernels]
     got = G.denoise_grouped(xb, sb, folded)
-    assert G.GROUPED.launches == before + 5
+    assert [k.launches for k in kernels] == [before[0] + 5, before[1]]
     assert got.dtype == torch.bfloat16
+    want = G.grouped_reference(xb, sb, folded)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('n', NS)
+def test_grouped_fma_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 7)
+    xb, sb = x.bfloat16(), semb.bfloat16()
+    before = G.GROUPED_FMA.launches
+    got = G.GROUPED_FMA(xb, sb, folded)
+    assert G.GROUPED_FMA.launches == before + 5
     want = G.grouped_reference(xb, sb, folded)
     torch.cuda.synchronize()
     _bf16_close(got, want)
@@ -215,22 +228,56 @@ def test_grouped_kernel_matches_plain_version(folded, n):
                          ids=['f32', 'bf16'])
 def test_dma_kernel_matches_plain_version(folded, dtype, n):
     x, semb = _inputs(n, seed=n + 3)
-    kernel = {torch.float32: D.DMA_PIPELINED_F32,
-              torch.bfloat16: D.DMA_PIPELINED}[dtype]
-    before = kernel.launches
+    kernel, fma = {torch.float32: (D.DMA_PIPELINED_F32,
+                                   D.DMA_PIPELINED_F32_FMA),
+                   torch.bfloat16: (D.DMA_PIPELINED,
+                                    D.DMA_PIPELINED_FMA)}[dtype]
+    before = (kernel.launches, fma.launches)
     got = D.denoise_dma(x, semb, folded, compute_dtype=dtype)
-    assert kernel.launches == before + 1
+    assert (kernel.launches, fma.launches) == (before[0] + 1, before[1])
     assert got.dtype == torch.float32
     want = D.dma_reference(x, semb, folded, dtype)
     torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        # B3 runs the table of B1's FMA design: the same sums in the
-        # same order
+        # B3 at float32 is B1's 3xTF32 kernel on B1's plan: the same sums
+        # in the same order
+        torch.testing.assert_close(got, P.DENOISER(x, semb, folded),
+                                   rtol=0, atol=0)
+    else:
+        _bf16_close(got, want)
+        # B1 bfloat16's ops on its plan; only eps is left unrounded
+        torch.testing.assert_close(
+            got.bfloat16(), P.DENOISER_BF16(x.bfloat16(), semb, folded),
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('n', NS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_dma_fma_kernel_matches_plain_version(folded, dtype, n):
+    x, semb = _inputs(n, seed=n + 8)
+    kernel = {torch.float32: D.DMA_PIPELINED_F32_FMA,
+              torch.bfloat16: D.DMA_PIPELINED_FMA}[dtype]
+    before = kernel.launches
+    got = kernel(x, semb, folded)
+    assert kernel.launches == before + 1
+    want = D.dma_reference(x, semb, folded, dtype)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        # the FMA design of B3 runs the table of B1's FMA design
         torch.testing.assert_close(got, P.DENOISER_F32_FMA(x, semb, folded),
                                    rtol=0, atol=0)
     else:
         _bf16_close(got, want)
+
+
+@pytest.mark.parametrize('kernel', [G.GROUPED, D.DMA_PIPELINED],
+                         ids=['grouped', 'dma_bf16'])
+def test_new_tc_libraries_run_on_the_tensor_cores(folded, kernel):
+    """The B2 and B3 bfloat16 libraries' SASS holds bf16 HMMAs."""
+    assert re.search(r'HMMA\.16816\.F32\.BF16', _sass(kernel))
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(folded):
@@ -251,6 +298,13 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(folded):
                             semb, folded)
     with pytest.raises(ValueError, match='CUDA tensor'):
         D.DMA_PIPELINED(x.cpu(), semb.cpu(), folded)
+    with pytest.raises(ValueError, match='x_ctn must be float32'):
+        D.DMA_PIPELINED_F32(xb, semb, folded)
+    with pytest.raises(ValueError, match='contiguous'):
+        G.GROUPED(xb.transpose(0, 1).contiguous().transpose(0, 1), sb,
+                  folded)
+    with pytest.raises(ValueError, match='silu_emb_en must be float32'):
+        D.DMA_PIPELINED(x, sb, folded)
 
 
 def test_generate_bf16_runs_through_the_bf16_kernel(folded):

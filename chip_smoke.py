@@ -46,7 +46,25 @@ Phases, each printing one line:
                the tensor-core kernel only;
  11. agree_bf16 that path through the kernel and through the plain version
                on the same noise, and its distance from the float32 path;
- 12. profile_bf16 one more bfloat16 pass under torch.profiler, as 7.
+ 12. profile_bf16 one more bfloat16 pass under torch.profiler, as 7;
+ 13. train     `Trainer.fit` of a fresh model at the flagship training
+               settings (config/UBnormal/mocodad_train.yaml: batch 1024, 5
+               views, validation with 5 samples) on the synthetic set's
+               train split, 2 epochs, each ending with the validation AUC
+               through B1 float32 (9 launches per validation batch, none
+               in a train step, checked); one line per epoch (steps/s,
+               windows/s, losses, AUC, validation seconds and launches),
+               then best_weights.ckpt reloaded through
+               `restore_and_infer`, whose AUC on the validation split
+               must equal the logged one;
+ 14. train_agree 3 train steps on the card and the same 3 on the CPU, from
+               the same weights, batches and injected (t, eps): each
+               step's loss and the parameters after them;
+ 15. train_profile a few train steps under torch.profiler: the device ms
+               of the forward, the backward and the optimizer, and the
+               device's idle share;
+ 16. train_bf16 train steps/s at `train_dtype` float32 and bfloat16, in
+               turns.
 Then one JSON line with each kernel's numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
@@ -55,6 +73,7 @@ last line.  Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import shutil
@@ -78,8 +97,10 @@ from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
 from mocodad_tpu_torch.tools.perf.common import (N_ROWS as N_FOLD,
                                                  fold_inputs, rel_errors,
                                                  time_ms)
+from mocodad_tpu_torch.data import apply_affine_batch, make_loader, to_device
 from mocodad_tpu_torch.training.inference import (restore_and_infer,
                                                   run_inference)
+from mocodad_tpu_torch.training.loop import SPANS, Trainer
 from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
 
 N_RAGGED = 1031
@@ -100,6 +121,29 @@ PATH_RTOL, PATH_ATOL = 1e-4, 1e-5
 BF16_MAX_REL, BF16_MEAN_REL = 3e-2, 1e-3
 # the bfloat16 chain, kernel against plain version: per-window losses
 PATH_BF16_MAX_REL, PATH_BF16_MEAN_REL = 1e-2, 1e-3
+
+# training on the card against the CPU, 3 Adam steps from the same weights,
+# batches and noise at full width, float32 on both sides (TF32 off).  The
+# gradients of a step are sums that cancel: against float64 on the CPU the
+# card's step-1 gradients land within 5.5e-4 of each tensor's largest
+# gradient and the CPU's float32 within 5.3e-4 (on an NVIDIA H100 80GB
+# HBM3 at 700 W).  Adam's first steps are about lr x sign(g), so an
+# element whose gradient is below that rounding steps the other way on one
+# side.  So: the card's
+# step-1 gradients within 5e-3 of each tensor's largest float64 gradient;
+# each step's loss within 1e-4 (measured 8.6e-6); after 3 steps no
+# parameter further apart than 3 steps each way (a bias-corrected Adam
+# step is at most about 1.01 lr in the first steps: 10 % of margin on top;
+# measured 2.4e-3 to 3.7e-3), and the mean |diff| over all parameters
+# within 2 % of a step (measured 1.6e-6).  The biases
+# of the 1x1 convs that feed a train-mode BatchNorm have a true gradient
+# of 0 (their steps are noise on both sides) and are left out of the
+# gradient check and the mean.
+TRAIN_GRAD_REL, TRAIN_LOSS_RTOL = 5e-3, 1e-4
+TRAIN_PARAM_MEAN = 2e-5
+TRAIN_STEP_MAX = 1.1      # the largest Adam step, in units of lr
+BN_FED_BIASES = ('tcn.0.bias', 'residual.0.bias', 'block.0.bias')
+TRAIN_LR = 1e-3
 
 # the H100 SXM's float32 rate outside the tensor cores and its HBM rate,
 # and its dense bfloat16 and TF32 tensor-core rates (NVIDIA's data sheet,
@@ -277,6 +321,252 @@ def main_path(cfg, eval_dtype: str):
             not np.isfinite(res['loss']).all() or not 0 <= auc <= 1:
         raise RuntimeError(f'main path ({eval_dtype}) output malformed')
     return model, ds, res, counts, seconds, auc
+
+
+def train_config(data_dir: str, ckpt_dir: str, **kw):
+    """config/UBnormal/mocodad_train.yaml's settings on the synthetic set;
+    `kw` overrides any of them."""
+    base = dict(
+        split='train', validation=True, n_generated_samples=5,
+        batch_size=1024, num_transform=5, data_dir=data_dir,
+        ckpt_dir=ckpt_dir, use_hr=False, vid_res=[640, 360],
+        gt_path=os.path.join(data_dir, 'validating', 'test_frame_mask'),
+        opt_lr=TRAIN_LR)
+    base.update(kw)
+    return flagship_config(**base)
+
+
+def train_phase(data_dir: str, work: str, card: str):
+    """Phase 13; returns (config, train set) for the later train phases."""
+    cfg = train_config(data_dir, os.path.join(work, 'train'),
+                       extras={'log_every_n_steps': 5})
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    train_ds = build_dataset(cfg, split='train')
+    val_ds = build_dataset(cfg, split='validation')
+    val_batches = -(-len(val_ds) // cfg.batch_size)
+    trainer = Trainer(cfg, device='cuda')
+    validate, val_launches = trainer.validation_metric, []
+
+    def counted(ds, epoch):
+        before = P.DENOISER.launches
+        out = validate(ds, epoch)
+        val_launches.append(P.DENOISER.launches - before)
+        return out
+
+    trainer.validation_metric = counted
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, val_ds, n_epochs=2)
+    fit_seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = trainer.steps_per_epoch
+    for e, launches in zip(trainer.history, val_launches):
+        phase('train', epoch=e['epoch'], steps=steps,
+              windows=len(train_ds),
+              steps_per_s=f'{steps / e["train_seconds"]:.2f}',
+              windows_per_s=f'{e["windows_per_s"]:.1f}',
+              loss=f'{e["loss"]:.6f}', loss_noise=f'{e["loss_noise"]:.6f}',
+              loss_recons=f'{e["loss_recons"]:.6f}', auc=f'{e["AUC"]:.6f}',
+              lr=f'{e["lr"]:.8f}', val_windows=len(val_ds),
+              val_batches=val_batches,
+              val_seconds=f'{e["val_seconds"]:.3f}', val_launches=launches,
+              card=repr(card))
+    train_launches = sum(counts.values()) - sum(val_launches)
+    phase('train', fit_seconds=f'{fit_seconds:.3f}',
+          train_step_launches=train_launches,
+          launches=json.dumps({k: v for k, v in counts.items() if v}))
+    bad = [e for e in trainer.history
+           if not np.isfinite([e['loss'], e['loss_noise'],
+                               e['loss_recons']]).all()
+           or not 0 <= e['AUC'] <= 1]
+    if bad or train_launches or counts['denoiser'] != sum(val_launches) or \
+            any(n != 9 * val_batches for n in val_launches):
+        raise RuntimeError(f'train phase: malformed epochs {bad} or '
+                           f'launches {counts}, validation {val_launches}, '
+                           f'expected 9 x {val_batches} per validation')
+
+    # the best checkpoint through the eval path, on the validation split
+    # with the seed of the epoch that made it: the logged AUC again
+    with open(os.path.join(cfg.ckpt_dir, 'best_weights.ckpt.json')) as f:
+        best = json.load(f)
+    ecfg = train_config(data_dir, cfg.ckpt_dir, split='validation',
+                        load_ckpt='best_weights.ckpt',
+                        seed=(1 << 30) + cfg.seed + best['epoch'])
+    reset_launches()
+    _, ds, res = restore_and_infer(ecfg, device='cuda')
+    auc = post_processing_from_config(res['loss'], res['trans'],
+                                      res['meta'], res['frames'], ecfg)
+    reloaded = launch_counts()['denoiser']
+    phase('train', reloaded='best_weights.ckpt', epoch=best['epoch'],
+          auc=f'{auc:.6f}', logged_auc=f'{best["AUC"]:.6f}',
+          launches=reloaded)
+    if res['loss'].shape != (len(ds),) or \
+            not np.isfinite(res['loss']).all() or \
+            abs(auc - best['AUC']) > 1e-6 or reloaded != 9 * val_batches:
+        raise RuntimeError('best_weights.ckpt does not give back the '
+                           'validation it was saved for')
+    return cfg, train_ds
+
+
+def train_batches(cfg, ds, n: int):
+    """The first n shuffled host batches of epoch 0 (fewer if the epoch
+    has fewer)."""
+    return list(itertools.islice(
+        make_loader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed), n))
+
+
+def placed(batch, device):
+    return [to_device(batch[k], device) for k in ('data', 'trans', 'mask')]
+
+
+def train_agree_phase(cfg, ds) -> None:
+    """Phase 14."""
+    batches = train_batches(cfg, ds, 3)
+    rng = np.random.default_rng(7)
+    b = cfg.batch_size
+    noise = [(torch.from_numpy(rng.integers(1, cfg.noise_steps, b)),
+              torch.from_numpy(rng.standard_normal((b, 2, 3, 17)).astype(
+                  np.float32))) for _ in batches]
+
+    def grads(net):
+        return {k: p.grad.detach().cpu().double()
+                for k, p in net.named_parameters()
+                if not k.endswith(BN_FED_BIASES)}
+
+    runs = {}
+    for dev in ('cuda', 'cpu'):
+        t = Trainer(cfg, device=dev, noise_fn=lambda step, rows: noise[step])
+        t.init_state(len(batches))
+        losses, g1 = [], None
+        for x in batches:
+            losses.append(float(t.train_step(*placed(x, t.device))['loss']))
+            g1 = g1 or grads(t.net)
+        runs[dev] = (t, losses, g1)
+    # step 1's gradients in float64 on the CPU, the reference for both
+    t64 = Trainer(cfg, device='cpu')
+    t64.init_state(1)
+    t64.net.double()
+    data, trans, mask = placed(batches[0], t64.device)
+    data = apply_affine_batch(data.double(), t64.mats.double(), trans.long())
+    loss64, _ = t64.model.loss(t64.net, data, sample_mask=mask.double(),
+                               noise_override=(noise[0][0],
+                                               noise[0][1].double()))
+    loss64.backward()
+    g64 = grads(t64.net)
+    (gpu, l_gpu, g_gpu), (cpu, l_cpu, g_cpu) = runs['cuda'], runs['cpu']
+
+    def grad_rel(g):
+        return max(float((g[k] - v).abs().max() / v.abs().max())
+                   for k, v in g64.items())
+
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
+    cpu_params = dict(cpu.net.named_parameters())
+    diffs = {k: (p.detach().cpu() - cpu_params[k].detach()).abs()
+             for k, p in gpu.net.named_parameters()}
+    param_max = max(float(d.max()) for d in diffs.values())
+    kept = [d for k, d in diffs.items() if not k.endswith(BN_FED_BIASES)]
+    param_mean = float(sum(d.sum() for d in kept) /
+                       sum(d.numel() for d in kept))
+    rel_cuda, rel_cpu = grad_rel(g_gpu), grad_rel(g_cpu)
+    bound_max = 2 * len(batches) * TRAIN_STEP_MAX * cfg.opt_lr
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and rel_cuda <= TRAIN_GRAD_REL
+          and param_max <= bound_max
+          and param_mean <= TRAIN_PARAM_MEAN and np.isfinite(l_gpu).all())
+    phase('train_agree', steps=len(batches), batch=b,
+          loss_cuda=json.dumps([round(x, 7) for x in l_gpu]),
+          loss_cpu=json.dumps([round(x, 7) for x in l_cpu]),
+          loss_max_rel=f'{loss_rel:.3e}', loss_rtol=TRAIN_LOSS_RTOL,
+          grad1_rel_cuda_vs_f64=f'{rel_cuda:.3e}',
+          grad1_rel_cpu_vs_f64=f'{rel_cpu:.3e}', grad_bound=TRAIN_GRAD_REL,
+          param_max_abs=f'{param_max:.3e}',
+          param_mean_abs=f'{param_mean:.3e}',
+          bound_max=f'{bound_max:.3e}',
+          bound_mean=TRAIN_PARAM_MEAN, ok=ok)
+    if not ok:
+        raise RuntimeError('train steps on the card disagree with the CPU')
+
+
+def train_profile_phase(cfg, ds, card: str) -> None:
+    """Phase 15: 8 steps after 2 warm-up steps, under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = [placed(x, torch.device('cuda'))
+               for x in train_batches(cfg, ds, 8)]
+    t = Trainer(cfg, device='cuda')
+    t.init_state(len(batches))
+    for x in batches[:2]:
+        t.train_step(*x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in batches:
+            t.train_step(*x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    # kernels launched inside the forward and optimizer ranges are their
+    # children; the backward's are launched by autograd's own thread, so
+    # it is the rest of the window's device time
+    spans = dict.fromkeys(SPANS, 0.0)
+    for e in prof.events():
+        if e.name in spans and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            spans[e.name] += e.device_time_total / 1e3
+    device_ms, others = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, 'is_user_annotation', False) or \
+                e.key in spans or e.key.startswith('Optimizer.'):
+            continue
+        ms = e.self_device_time_total / 1e3
+        device_ms += ms
+        others[e.key[:48]] = others.get(e.key[:48], 0.0) + ms
+    spans[SPANS[1]] = device_ms - spans[SPANS[0]] - spans[SPANS[2]]
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    wall_ms = seconds * 1e3
+    n = len(batches)
+    phase('train_profile', steps=n, seconds=f'{seconds:.3f}',
+          step_ms=f'{wall_ms / n:.3f}',
+          forward_device_ms=f'{spans[SPANS[0]] / n:.3f}',
+          backward_device_ms=f'{spans[SPANS[1]] / n:.3f}',
+          optimizer_device_ms=f'{spans[SPANS[2]] / n:.3f}',
+          device_ms=f'{device_ms / n:.3f}',
+          idle_share=(f'{1 - device_ms / wall_ms:.3f}' if device_ms > 0
+                      else 'not measured (no device events)'),
+          top=json.dumps([[k, round(v / n, 3)] for k, v in top]),
+          card=repr(card))
+
+
+def train_bf16_phase(cfg, ds, card: str) -> None:
+    """Phase 16: 10 timed steps after 2 warm-up steps, float32 and
+    bfloat16 in turns (f32, bf16, bf16, f32)."""
+    batches = [placed(x, torch.device('cuda'))
+               for x in train_batches(cfg, ds, 4)]
+    rates = {'float32': [], 'bfloat16': []}
+    for dtype in ('float32', 'bfloat16', 'bfloat16', 'float32'):
+        c = train_config(cfg.data_dir, cfg.ckpt_dir,
+                         batch_size=cfg.batch_size,
+                         extras={'train_dtype': dtype})
+        t = Trainer(c, device='cuda')
+        t.init_state(len(batches))
+        for x in batches[:2]:
+            t.train_step(*x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            m = t.train_step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        rates[dtype].append(10 / (time.perf_counter() - t0))
+        if not np.isfinite(float(m['loss'])):
+            raise RuntimeError(f'train_dtype {dtype}: loss not finite')
+    b = cfg.batch_size
+    phase('train_bf16', batch=b,
+          float32_steps_per_s=json.dumps([round(r, 2)
+                                          for r in rates['float32']]),
+          bfloat16_steps_per_s=json.dumps([round(r, 2)
+                                           for r in rates['bfloat16']]),
+          float32_windows_per_s=f'{b * np.mean(rates["float32"]):.1f}',
+          bfloat16_windows_per_s=f'{b * np.mean(rates["bfloat16"]):.1f}',
+          card=repr(card))
 
 
 def main() -> int:
@@ -631,6 +921,17 @@ def main() -> int:
 
         # 12. where the time of the bfloat16 pass goes
         profile_phase('profile_bf16', lambda: run(model16))
+
+        # 13-16. training from a fresh model; no train step launches a
+        # kernel (counts from 0 before phases 14-16, read after)
+        tcfg, train_ds = train_phase(data_dir, work, card)
+        reset_launches()
+        train_agree_phase(tcfg, train_ds)
+        train_profile_phase(tcfg, train_ds, card)
+        train_bf16_phase(tcfg, train_ds, card)
+        if any(launch_counts().values()):
+            raise RuntimeError(f'train steps launched kernels: '
+                               f'{launch_counts()}')
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -5,9 +5,18 @@
     python eval_MoCoDAD_torch.py -c <config> --device cpu
 
 The checkpoint (ckpt_dir/load_ckpt) is a reference-named state dict written
-by torch.save, bare or as Lightning's {'state_dict': ...}.  The default
-device is the GPU; the script exits with an error when CUDA is absent
-unless --device cpu is given.
+by torch.save, bare or as Lightning's {'state_dict': ...}, or a checkpoint
+of train_MoCoDAD_torch.py.  The default device is the GPU; the script
+exits with an error when CUDA is absent unless --device cpu is given.
+
+With `eval_dtype: bfloat16` the port computes the function of the JAX
+package's `build_pallas_eval` (the one its bfloat16 kernel computes: the
+condition encoder and each DDPM update in float32, x rounded to bfloat16
+between steps), not that of eval_MoCoDAD.py at bfloat16, whose
+`generate()` also runs the encoder in bfloat16 and keeps the update in
+bfloat16.  On the same weights and noise their per-window losses differ
+by 0.3-0.6 % of the largest loss (tests/test_torch_generate_bf16_xla.py);
+at float32 the two packages agree within 3.1e-7.
 """
 
 import argparse

@@ -4,16 +4,17 @@ PyTorch-side counterpart of `mocodad_tpu/diffusion.py` (reference
 utils/diffusion_utils.py: cosine schedule via squared-cosine alpha-bar,
 `betas_for_alpha_bar` :8-14).  The tables are float32 NumPy arrays built
 exactly as the JAX package builds them, so they are bit-equal; the reverse
-chain itself lives in `models/mocodad.py`.  The DDIM sampler is not ported
-yet.
+chain itself lives in `models/mocodad.py`, the forward noising of training
+here.  The DDIM sampler is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def betas_for_alpha_bar(num_steps: int, alpha_bar: Callable[[float], float],
@@ -85,3 +86,31 @@ def ddpm_step_coefficients(schedule: DiffusionSchedule, t: int
     c2 = (one - a) / np.sqrt(one - a_hat)
     c3 = np.sqrt(coef(schedule.beta, t))
     return float(c1), float(c2), float(c3)
+
+
+def sample_timesteps(n: int, noise_steps: int,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """(n,) int64 timesteps uniform in [1, noise_steps), on the generator's
+    device (mocodad_tpu/diffusion.py:91-93)."""
+    dev = generator.device if generator is not None else None
+    return torch.randint(1, noise_steps, (n,), generator=generator,
+                         device=dev)
+
+
+def forward_noise(schedule: DiffusionSchedule, x: torch.Tensor,
+                  t: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q(x_t | x_0): x_t = sqrt(a-bar_t) x + sqrt(1 - a-bar_t) eps, for any
+    rank of x with t (B,) along axis 0 (mocodad_tpu/diffusion.py:96-113).
+    The table is a float32 constant on x's device; `eps` replaces the
+    gaussian draw (tests inject another package's noise)."""
+    a_hat = torch.as_tensor(schedule.alpha_hat, device=x.device)[t.long()]
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    sqrt_a = torch.sqrt(a_hat).reshape(shape)
+    sqrt_1ma = torch.sqrt(1.0 - a_hat).reshape(shape)
+    if eps is None:
+        eps = torch.randn(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype)
+    return sqrt_a * x + sqrt_1ma * eps, eps

@@ -1,12 +1,12 @@
 """MoCoDAD: the network container and multi-sample generation.
 
 PyTorch counterpart of `mocodad_tpu/models/mocodad.py` (reference
-models/mocodad.py).  The port covers the eval path of the inject family:
-the AE / E condition encoders, the STSAEUnet denoiser and the DDPM chain
-of `generate`, at `eval_dtype` float32 or bfloat16.  Training, the other
-conditioning strategies, the latent variant and the DDIM / antithetic
-samplers are not ported yet and raise NotImplementedError, as does any
-other `eval_dtype`.
+models/mocodad.py).  The port covers the inject family with the AE / E
+condition encoders and the STSAEUnet denoiser: the training loss of
+`loss` (at `train_dtype` float32 or bfloat16) and the DDPM chain of
+`generate` (at `eval_dtype` float32 or bfloat16).  The other conditioning
+strategies, the latent variant and the DDIM / antithetic samplers are not
+ported yet and raise NotImplementedError, as does any other dtype.
 
 Generation folds the sample axis S into the batch, b-major
 (row = b*S + s), and runs the 9-step chain with the sampler state in the
@@ -31,21 +31,32 @@ bfloat16; the losses are float32 (:562-565).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from mocodad_tpu_torch.config import Config, effective_n_generated_samples
-from mocodad_tpu_torch.diffusion import ddpm_step_coefficients, make_schedule
+from mocodad_tpu_torch.diffusion import (DiffusionSchedule,
+                                         ddpm_step_coefficients,
+                                         forward_noise, make_schedule,
+                                         sample_timesteps)
 from mocodad_tpu_torch.models import frames as F
-from mocodad_tpu_torch.models.losses import aggregate
+from mocodad_tpu_torch.models.losses import aggregate, elementwise_loss
 from mocodad_tpu_torch.nn import STSAE, STSE, STSAEUnet, sinusoidal_pos_encoding
 from mocodad_tpu_torch.ops.pallas_unet import (FoldedDenoiser, denoise,
                                                fold_denoiser)
 
 EVAL_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def _dtype_key(cfg: Config, key: str) -> torch.dtype:
+    name = str(cfg.extras.get(key, 'float32'))
+    if name not in EVAL_DTYPES:
+        raise NotImplementedError(
+            f'{key} {name!r} is not ported (float32 or bfloat16)')
+    return EVAL_DTYPES[name]
 
 
 class MoCoDADNet(nn.Module):
@@ -91,6 +102,14 @@ class MoCoDADNet(nn.Module):
         pred, _ = self.model(x, t, cond_emb)
         return pred
 
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(eps prediction, the AE's reconstruction of `cond` or None)
+        (mocodad_tpu/models/mocodad.py:123-125)."""
+        latent, rec = self.condition_encoder(cond)
+        pred, _ = self.model(x, t, latent)
+        return pred, rec
+
 
 class MoCoDADModel:
     """Holds the configuration; the network is passed to each call, as the
@@ -109,15 +128,14 @@ class MoCoDADModel:
             raise NotImplementedError('random_imp is not ported yet')
         self._static_order = F.static_order(cond_idxs, corrupt_idxs)
         self.loss_kind = cfg.loss_fn
+        self.rec_weight = cfg.rec_weight
         self.aggregation_strategy = cfg.aggregation_strategy
         self.model_return_value = cfg.model_return_value
         self.schedule = make_schedule(cfg.noise_steps)
-        eval_dtype = str(cfg.extras.get('eval_dtype', 'float32'))
-        if eval_dtype not in EVAL_DTYPES:
-            raise NotImplementedError(
-                f'eval_dtype {eval_dtype!r} is not ported (float32 or '
-                'bfloat16)')
-        self.eval_dtype = EVAL_DTYPES[eval_dtype]
+        self.eval_dtype = _dtype_key(cfg, 'eval_dtype')
+        # the net's forward and backward in training; master params, grads,
+        # BN running statistics, the noising and the loss stay float32
+        self.train_dtype = _dtype_key(cfg, 'train_dtype')
         sampler = str(cfg.extras.get('sampler', 'ddpm'))
         if sampler != 'ddpm':
             raise NotImplementedError(
@@ -125,6 +143,20 @@ class MoCoDADModel:
         if cfg.extras.get('antithetic', False):
             raise NotImplementedError('antithetic sampling is not ported yet')
         self.n_generated_samples = effective_n_generated_samples(cfg)
+        self._device_tables = {}
+
+    def tables(self, device: torch.device
+               ) -> Tuple[torch.Tensor, DiffusionSchedule]:
+        """The frame order and the schedule with its alpha-bar table, as
+        tensors on `device`, copied there once: a copy from pageable host
+        memory inside a step would stall the host until the card is idle."""
+        out = self._device_tables.get(device)
+        if out is None:
+            out = (torch.as_tensor(self._static_order, device=device),
+                   self.schedule._replace(alpha_hat=torch.as_tensor(
+                       self.schedule.alpha_hat, device=device)))
+            self._device_tables[device] = out
+        return out
 
     def build_net(self) -> MoCoDADNet:
         cfg = self.cfg
@@ -142,6 +174,74 @@ class MoCoDADModel:
         """The denoiser's folded eval-mode constants; refold after the
         weights change."""
         return fold_denoiser(net.model)
+
+    @staticmethod
+    def _masked_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]
+                     ) -> torch.Tensor:
+        """Mean over all elements, each sample weighted by its mask entry
+        (mocodad_tpu/models/mocodad.py:262-274)."""
+        if sample_mask is None:
+            return x.mean()
+        m = sample_mask.reshape((-1,) + (1,) * (x.ndim - 1))
+        per_sample = max(1, int(np.prod(x.shape[1:])))
+        return (x * m).sum() / (sample_mask.sum() * per_sample)
+
+    def loss(self, net: MoCoDADNet, data: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             sample_mask: Optional[torch.Tensor] = None,
+             noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
+             = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Noise-prediction loss plus the AE reconstruction term, on `net`
+        in its current mode (mocodad_tpu/models/mocodad.py:276-368).
+
+        data: (B, C, T, V) on the device to run on; `generator`, on that
+        device, draws t and the forward noise unless `noise_override =
+        (t, eps)` is given.  In train mode the BatchNorm running statistics
+        update in place on `net` (JAX returns them as `mutated`).  Returns
+        (loss, metrics) with metrics 'loss_noise', 'loss_recons' (AE only)
+        and 'loss', detached.
+        """
+        b = data.shape[0]
+        order, schedule = self.tables(data.device)
+        cond_data, corrupt_data = F.select_frames(data, order,
+                                                  self.n_frames_condition)
+        if noise_override is not None:
+            t, eps = noise_override
+            t = torch.as_tensor(t, device=data.device).long()
+            eps = torch.as_tensor(eps, device=data.device,
+                                  dtype=corrupt_data.dtype)
+        else:
+            t = sample_timesteps(b, self.schedule.noise_steps, generator)
+            eps = None
+        x_t, noise = forward_noise(schedule, corrupt_data, t, eps=eps,
+                                   generator=generator)
+        x_in = F.assemble_input(self.strategy, cond_data, x_t, order,
+                                self.n_frames_condition)
+        dt = self.train_dtype if net.training else torch.float32
+        if dt == torch.float32:
+            pred, rec = net(x_in, t, cond_data)
+        else:
+            # params cast inside the differentiated graph, so their grads
+            # land on the float32 masters; the BN buffers are not passed,
+            # so the module's own float32 accumulators update
+            params = {k: p.to(dt) for k, p in net.named_parameters()}
+            pred, rec = torch.func.functional_call(
+                net, params, (x_in.to(dt), t, cond_data.to(dt)))
+            pred = pred.float()
+            rec = None if rec is None else rec.float()
+        pred = F.extract_corrupt(self.strategy, pred, order,
+                                 self.n_frames_condition)
+        loss_noise = self._masked_mean(
+            elementwise_loss(self.loss_kind, pred, noise), sample_mask)
+        metrics = {'loss_noise': loss_noise.detach()}
+        loss = loss_noise
+        if rec is not None:
+            loss_rec = self._masked_mean(torch.square(rec - cond_data),
+                                         sample_mask)
+            loss = loss_noise + self.rec_weight * loss_rec
+            metrics['loss_recons'] = loss_rec.detach()
+        metrics['loss'] = loss.detach()
+        return loss, metrics
 
     @torch.no_grad()
     def generate(self, net: MoCoDADNet, data: torch.Tensor,
@@ -180,7 +280,7 @@ class MoCoDADModel:
             raise ValueError('generate needs a torch.Generator (rng) unless '
                              'noise_override is given')
         cond_data, corrupt_data = F.select_frames(
-            data, self._static_order, self.n_frames_condition)
+            data, self.tables(dev)[0], self.n_frames_condition)
         cond_emb = net.encode_condition(cond_data)            # (B, E)
         # (E, S*B), b-major fold: row = b*S + s
         emb_t = cond_emb.repeat_interleave(s, dim=0).T.contiguous()

@@ -1,5 +1,6 @@
 from mocodad_tpu_torch.nn.stsgcn import (  # noqa: F401
-    ConvTemporalGraphical, JointMixLayer, STGCNNLayer, compose_graph_operator)
+    ConvTemporalGraphical, FlaxBatchNorm2d, JointMixLayer, STGCNNLayer,
+    compose_graph_operator)
 from mocodad_tpu_torch.nn.components import (  # noqa: F401
     Decoder, Encoder, sinusoidal_pos_encoding)
 from mocodad_tpu_torch.nn.stsae import STSE, STSAE  # noqa: F401

@@ -11,7 +11,8 @@ operator K, as in the JAX package:
                = reshape(X, (N*C, T*V)) @ K,   K[(t,v),(q,w)] = Tm[v,t,q]*A[q,v,w]
 
 Layout is channels-first (N, C, T, V).  BatchNorms run with running
-statistics in eval mode (eps 1e-5, as flax).
+statistics in eval mode (eps 1e-5, as flax) and follow flax's
+`nn.BatchNorm` in train mode (`FlaxBatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,36 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with flax `nn.BatchNorm`'s train-mode semantics
+    (mocodad_tpu/nn/stsgcn.py:120, :131, :177; flax momentum 0.9 is this
+    class's momentum 0.1, the default).
+
+    In train mode the input is normalized with the batch mean and the
+    BIASED batch variance, and `running_var` takes the biased variance
+    too, where `nn.BatchNorm2d` would put the unbiased one.  The statistics
+    are float32 whatever the input's dtype, as flax computes them; flax
+    takes the variance as E[x^2] - E[x]^2 and torch by Welford's method,
+    the same value up to float32 rounding.  The normalization is one
+    `batch_norm` call, so autograd sees one node.
+    Eval mode is `nn.BatchNorm2d`'s; parameter and buffer names are
+    unchanged, so reference state dicts load with `strict=True`.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return nn.functional.batch_norm(x, None, None, self.weight,
+                                        self.bias, True, 0.0, self.eps)
 
 
 def compose_graph_operator(tm: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -66,14 +97,14 @@ class STGCNNLayer(nn.Module):
         self.gcn = ConvTemporalGraphical(time_dim, joints_dim)
         self.tcn = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 1, bias=bias),
-            nn.BatchNorm2d(out_channels),
+            FlaxBatchNorm2d(out_channels),
             nn.Dropout(dropout))
         # residual: identity when shapes match, else 1x1 conv + BN
         self.residual = (None if in_channels == out_channels else
                          nn.Sequential(
                              nn.Conv2d(in_channels, out_channels, 1,
                                        bias=bias),
-                             nn.BatchNorm2d(out_channels)))
+                             FlaxBatchNorm2d(out_channels)))
         self.prelu = nn.PReLU()
         self.emb_layer = (None if emb_dim is None else nn.Sequential(
             nn.SiLU(), nn.Linear(emb_dim, out_channels)))
@@ -84,7 +115,14 @@ class STGCNNLayer(nn.Module):
         y = self.tcn(self.gcn(x))
         y = self.prelu(y + res)
         if self.emb_layer is not None and t_emb is not None:
-            y = y + self.emb_layer(t_emb)[:, :, None, None]
+            # the embedding path runs in t_emb's float32 whatever the
+            # weights' dtype, and is cast to y's
+            # (mocodad_tpu/nn/stsgcn.py:146-149)
+            lin = self.emb_layer[1]
+            emb = nn.functional.linear(nn.functional.silu(t_emb),
+                                       lin.weight.to(t_emb.dtype),
+                                       lin.bias.to(t_emb.dtype))
+            y = y + emb.to(y.dtype)[:, :, None, None]
         return y
 
 
@@ -98,7 +136,7 @@ class JointMixLayer(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             nn.Conv2d(in_joints, out_joints, 1, bias=bias),
-            nn.BatchNorm2d(out_joints),
+            FlaxBatchNorm2d(out_joints),
             nn.Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

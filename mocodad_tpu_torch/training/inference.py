@@ -3,8 +3,11 @@
 Counterpart of `Trainer.run_inference`, `restore_and_infer` and
 `export_prediction_tensors` (mocodad_tpu/training/loop.py:327-432,
 634-677).  Padded batches carry a mask, the affine views are applied on the
-device, and the padding is stripped at the end.  Results stay on the device
-until the pass ends, so the host does not wait on the card batch by batch.
+device, and the padding is stripped at the end.  Batches are assembled and
+copied to the device by a producer thread one or two batches ahead
+(`data/prefetch.py`, as JAX `loop.py:379-391`), and results stay on the
+device until the pass ends, so the host does not wait on the card batch
+by batch.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from mocodad_tpu_torch.config import Config
 from mocodad_tpu_torch.data import (PoseWindows, affine_transform_matrices,
                                     apply_affine_batch, build_dataset,
-                                    make_loader, transformed_gt_data)
+                                    make_loader, prefetch, to_device,
+                                    transformed_gt_data)
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.models.losses import selects_pose
 from mocodad_tpu_torch.models.mocodad import (MoCoDADModel, MoCoDADNet,
@@ -58,17 +62,17 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
     rng = torch.Generator(device=device).manual_seed(
         (int(seed) << 24) ^ EVAL_DOMAIN_TAG)
     s = model.n_generated_samples
+    keep = ('mask', 'trans', 'meta', 'frames')
+    loader = prefetch(make_loader(ds, batch_size), place=lambda b: (
+        {k: b[k] for k in keep}, to_device(b['data'], device),
+        to_device(b['trans'], device)))
     pending = []
-    for i, batch in enumerate(make_loader(ds, batch_size)):
-        data = torch.from_numpy(batch['data']).to(device)
-        trans = torch.from_numpy(batch['trans']).to(device, torch.long)
-        data = apply_affine_batch(data, mats, trans)
+    for i, (batch, data, trans) in enumerate(loader):
+        data = apply_affine_batch(data, mats, trans.long())
         noise = None if noise_fn is None else noise_fn(i, data.shape[0] * s)
         sel, loss = model.generate(net, data, rng, noise_override=noise,
                                    folded=folded)
-        pending.append((loss, sel if with_pose else None,
-                        {k: batch[k] for k in
-                         ('mask', 'trans', 'meta', 'frames')}))
+        pending.append((loss, sel if with_pose else None, batch))
     outs: Dict[str, list] = {k: [] for k in
                              ('loss', 'pose', 'trans', 'meta', 'frames')}
     for loss, pose, batch in pending:

@@ -22,6 +22,7 @@ _FORBIDDEN = ('jax', 'flax', 'optax')
 
 def _port_sources():
     files = [os.path.join(REPO, 'eval_MoCoDAD_torch.py'),
+             os.path.join(REPO, 'train_MoCoDAD_torch.py'),
              os.path.join(REPO, 'chip_smoke.py')]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
@@ -38,7 +39,11 @@ def test_import_leaves_jax_out():
         'import mocodad_tpu_torch.tools.perf.probe_grouped_pallas\n'
         'import mocodad_tpu_torch.tools.perf.probe_dma_pipeline\n'
         'import mocodad_tpu_torch.eval, mocodad_tpu_torch.utils.tensors\n'
-        'import eval_MoCoDAD_torch, chip_smoke\n'
+        'import mocodad_tpu_torch.training.loop\n'
+        'import mocodad_tpu_torch.training.checkpoint\n'
+        'import mocodad_tpu_torch.training.ema\n'
+        'import mocodad_tpu_torch.data.prefetch\n'
+        'import eval_MoCoDAD_torch, train_MoCoDAD_torch, chip_smoke\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "optax", "mocodad_tpu")]\n'
         'print(bad)\n'
@@ -76,6 +81,15 @@ def test_device_defaults_to_cuda_and_never_falls_back():
         with pytest.raises(RuntimeError):
             resolve_device('cuda')
     assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_trainer_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('CUDA is present: the default device is usable')
+    from mocodad_tpu_torch.config import flagship_config
+    from mocodad_tpu_torch.training.loop import Trainer
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Trainer(flagship_config())
 
 
 def test_restore_and_infer_raises_without_cuda(tmp_path):

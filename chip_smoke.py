@@ -64,7 +64,27 @@ Phases, each printing one line:
                of the forward, the backward and the optimizer, and the
                device's idle share;
  16. train_bf16 train steps/s at `train_dtype` float32 and bfloat16, in
-               turns.
+               turns;
+ 17. check_frames B1 float32 and bfloat16 against their plain versions at
+               T = 4 and 6 frames (the U-Net of inject with 2 conditioning
+               frames, and of concat), at both N;
+ 18. time_frames B1's ms per call at T = 6 and N = 51,200 at both dtypes,
+               beside their bounds, their shares and the plain version's;
+ 19. main_concat the flagship architecture with `conditioning_strategy:
+               concat` (the U-Net at T = 6) through `restore_and_infer`,
+               as 5, B1 float32 only;
+ 20. agree_concat, agree_concat_bf16 that path through the kernel and
+               through the plain version on the same noise, at float32 and
+               bfloat16, each followed by one more kernel pass under
+               torch.profiler (profile_concat, profile_concat_bf16), as 7;
+ 21. strategies one batch of 1024 windows x 50 samples each of
+               inbetween_imp, random_imp, no_condition, inject with the
+               E_unet encoder, DDIM at 3 steps and antithetic draws,
+               through the kernel and through the plain version on the same
+               generator, with the kernel's launches checked;
+ 22. train_concat, train_agree_random_imp `Trainer.fit` at concat, 2
+               epochs, validation through B1 at T = 6; one random_imp
+               train step on the card against the CPU, as 14.
 Then one JSON line with each kernel's numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
@@ -81,6 +101,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -89,7 +110,7 @@ from mocodad_tpu_torch.config import flagship_config
 from mocodad_tpu_torch.data import build_dataset, synthetic
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.eval.harness import post_processing_from_config
-from mocodad_tpu_torch.models import mocodad as M
+from mocodad_tpu_torch.models import frames as F, mocodad as M
 from mocodad_tpu_torch.ops import build, dma_unet as D, grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
 from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
@@ -336,10 +357,12 @@ def train_config(data_dir: str, ckpt_dir: str, **kw):
     return flagship_config(**base)
 
 
-def train_phase(data_dir: str, work: str, card: str):
-    """Phase 13; returns (config, train set) for the later train phases."""
-    cfg = train_config(data_dir, os.path.join(work, 'train'),
-                       extras={'log_every_n_steps': 5})
+def train_phase(data_dir: str, work: str, card: str, name: str = 'train',
+                **kw):
+    """Phase 13 (and 22 with `kw` from FRAMES); returns (config, train
+    set) for the later train phases."""
+    cfg = train_config(data_dir, os.path.join(work, name),
+                       extras={'log_every_n_steps': 5}, **kw)
     os.makedirs(cfg.ckpt_dir, exist_ok=True)
     train_ds = build_dataset(cfg, split='train')
     val_ds = build_dataset(cfg, split='validation')
@@ -361,23 +384,24 @@ def train_phase(data_dir: str, work: str, card: str):
     counts = launch_counts()
     steps = trainer.steps_per_epoch
     for e, launches in zip(trainer.history, val_launches):
-        phase('train', epoch=e['epoch'], steps=steps,
+        phase(name, epoch=e['epoch'], steps=steps,
               windows=len(train_ds),
               steps_per_s=f'{steps / e["train_seconds"]:.2f}',
               windows_per_s=f'{e["windows_per_s"]:.1f}',
               loss=f'{e["loss"]:.6f}', loss_noise=f'{e["loss_noise"]:.6f}',
-              loss_recons=f'{e["loss_recons"]:.6f}', auc=f'{e["AUC"]:.6f}',
+              loss_recons=(f'{e["loss_recons"]:.6f}' if 'loss_recons' in e
+                           else 'none'), auc=f'{e["AUC"]:.6f}',
               lr=f'{e["lr"]:.8f}', val_windows=len(val_ds),
               val_batches=val_batches,
               val_seconds=f'{e["val_seconds"]:.3f}', val_launches=launches,
               card=repr(card))
     train_launches = sum(counts.values()) - sum(val_launches)
-    phase('train', fit_seconds=f'{fit_seconds:.3f}',
+    phase(name, fit_seconds=f'{fit_seconds:.3f}',
           train_step_launches=train_launches,
           launches=json.dumps({k: v for k, v in counts.items() if v}))
     bad = [e for e in trainer.history
            if not np.isfinite([e['loss'], e['loss_noise'],
-                               e['loss_recons']]).all()
+                               e.get('loss_recons', 0.0)]).all()
            or not 0 <= e['AUC'] <= 1]
     if bad or train_launches or counts['denoiser'] != sum(val_launches) or \
             any(n != 9 * val_batches for n in val_launches):
@@ -391,13 +415,13 @@ def train_phase(data_dir: str, work: str, card: str):
         best = json.load(f)
     ecfg = train_config(data_dir, cfg.ckpt_dir, split='validation',
                         load_ckpt='best_weights.ckpt',
-                        seed=(1 << 30) + cfg.seed + best['epoch'])
+                        seed=(1 << 30) + cfg.seed + best['epoch'], **kw)
     reset_launches()
     _, ds, res = restore_and_infer(ecfg, device='cuda')
     auc = post_processing_from_config(res['loss'], res['trans'],
                                       res['meta'], res['frames'], ecfg)
     reloaded = launch_counts()['denoiser']
-    phase('train', reloaded='best_weights.ckpt', epoch=best['epoch'],
+    phase(name, reloaded='best_weights.ckpt', epoch=best['epoch'],
           auc=f'{auc:.6f}', logged_auc=f'{best["AUC"]:.6f}',
           launches=reloaded)
     if res['loss'].shape != (len(ds),) or \
@@ -419,9 +443,20 @@ def placed(batch, device):
     return [to_device(batch[k], device) for k in ('data', 'trans', 'mask')]
 
 
-def train_agree_phase(cfg, ds) -> None:
-    """Phase 14."""
-    batches = train_batches(cfg, ds, 3)
+def train_agree_phase(cfg, ds, name: str = 'train_agree', steps: int = 3,
+                      order=None, grad_floor: float = 0.0) -> None:
+    """Phase 14 (and 22 with `order`, one (B, T) frame order that every
+    trainer's model takes in place of its random draws).  A tensor's
+    gradient error is taken over its largest float64 gradient, or over
+    `grad_floor` times the step's largest if that is more."""
+    batches = train_batches(cfg, ds, steps)
+
+    def trainer(dev, **kw):
+        t = Trainer(cfg, device=dev, **kw)
+        if order is not None:
+            t.model.frame_order = lambda g, b, device=None: \
+                torch.as_tensor(order[:b], device=device)
+        return t
     rng = np.random.default_rng(7)
     b = cfg.batch_size
     noise = [(torch.from_numpy(rng.integers(1, cfg.noise_steps, b)),
@@ -435,7 +470,7 @@ def train_agree_phase(cfg, ds) -> None:
 
     runs = {}
     for dev in ('cuda', 'cpu'):
-        t = Trainer(cfg, device=dev, noise_fn=lambda step, rows: noise[step])
+        t = trainer(dev, noise_fn=lambda step, rows: noise[step])
         t.init_state(len(batches))
         losses, g1 = [], None
         for x in batches:
@@ -443,7 +478,7 @@ def train_agree_phase(cfg, ds) -> None:
             g1 = g1 or grads(t.net)
         runs[dev] = (t, losses, g1)
     # step 1's gradients in float64 on the CPU, the reference for both
-    t64 = Trainer(cfg, device='cpu')
+    t64 = trainer('cpu')
     t64.init_state(1)
     t64.net.double()
     data, trans, mask = placed(batches[0], t64.device)
@@ -455,8 +490,11 @@ def train_agree_phase(cfg, ds) -> None:
     g64 = grads(t64.net)
     (gpu, l_gpu, g_gpu), (cpu, l_cpu, g_cpu) = runs['cuda'], runs['cpu']
 
+    g_max = max(float(v.abs().max()) for v in g64.values())
+
     def grad_rel(g):
-        return max(float((g[k] - v).abs().max() / v.abs().max())
+        return max((float((g[k] - v).abs().max()) /
+                    max(float(v.abs().max()), grad_floor * g_max), k)
                    for k, v in g64.items())
 
     loss_rel = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
@@ -467,17 +505,18 @@ def train_agree_phase(cfg, ds) -> None:
     kept = [d for k, d in diffs.items() if not k.endswith(BN_FED_BIASES)]
     param_mean = float(sum(d.sum() for d in kept) /
                        sum(d.numel() for d in kept))
-    rel_cuda, rel_cpu = grad_rel(g_gpu), grad_rel(g_cpu)
+    (rel_cuda, worst), (rel_cpu, _) = grad_rel(g_gpu), grad_rel(g_cpu)
     bound_max = 2 * len(batches) * TRAIN_STEP_MAX * cfg.opt_lr
     ok = (loss_rel <= TRAIN_LOSS_RTOL and rel_cuda <= TRAIN_GRAD_REL
           and param_max <= bound_max
           and param_mean <= TRAIN_PARAM_MEAN and np.isfinite(l_gpu).all())
-    phase('train_agree', steps=len(batches), batch=b,
+    phase(name, steps=len(batches), batch=b,
           loss_cuda=json.dumps([round(x, 7) for x in l_gpu]),
           loss_cpu=json.dumps([round(x, 7) for x in l_cpu]),
           loss_max_rel=f'{loss_rel:.3e}', loss_rtol=TRAIN_LOSS_RTOL,
           grad1_rel_cuda_vs_f64=f'{rel_cuda:.3e}',
           grad1_rel_cpu_vs_f64=f'{rel_cpu:.3e}', grad_bound=TRAIN_GRAD_REL,
+          grad_floor=grad_floor, grad1_worst_cuda=worst,
           param_max_abs=f'{param_max:.3e}',
           param_mean_abs=f'{param_mean:.3e}',
           bound_max=f'{bound_max:.3e}',
@@ -567,6 +606,206 @@ def train_bf16_phase(cfg, ds, card: str) -> None:
           float32_windows_per_s=f'{b * np.mean(rates["float32"]):.1f}',
           bfloat16_windows_per_s=f'{b * np.mean(rates["bfloat16"]):.1f}',
           card=repr(card))
+
+
+# the U-Net at more frames than the flagship's 3: inject with 2 of 6
+# frames conditioning (T = 4), and concat (T = 6, as inbetween_imp,
+# random_imp and no_condition at seg_len 6)
+FRAMES = {4: dict(conditioning_indices=[0, 1]),
+          6: dict(conditioning_strategy='concat')}
+# the other paths of `generate`, each on the flagship's other settings
+STRATEGY_PATHS = (
+    ('inbetween_imp', dict(conditioning_strategy='inbetween_imp',
+                           conditioning_indices=2)),
+    ('random_imp', dict(conditioning_strategy='random_imp',
+                        conditioning_indices=3)),
+    ('no_condition', dict(conditioning_strategy='no_condition')),
+    ('inject_e_unet', dict(conditioning_architecture='E_unet')),
+    ('ddim', dict(extras={'sampler': 'ddim', 'ddim_steps': 3})),
+    ('antithetic', dict(extras={'antithetic': True})))
+
+
+def seeded_model(seed: int = 0, frames: Optional[int] = None, **kw):
+    """(model, eval-mode net on the card) of the flagship architecture
+    with 50 samples, at `frames` U-Net frames (FRAMES) and `kw`."""
+    model = M.MoCoDADModel(flagship_config(
+        n_generated_samples=50, **FRAMES.get(frames, {}), **kw))
+    net = M.seeded_state(model.build_net(), seed=seed).to('cuda').eval()
+    return model, net
+
+
+def check_frames_phase(g) -> dict:
+    """Phase 17; returns each kernel's max |diff| at T = 6, N = 51,200."""
+    errs = {}
+    for t in sorted(FRAMES):
+        model, net = seeded_model(frames=t)
+        folded = model.fold(net)
+        for n in (N_FOLD, N_RAGGED):
+            x, semb = fold_inputs(folded, n, g)
+            got = P.DENOISER(x, semb, folded)
+            torch.cuda.synchronize()
+            err, ok = max_rel_excess(got, P.denoise_reference(x, semb, folded),
+                                     KERNEL_RTOL, KERNEL_ATOL)
+            phase('check_frames', frames=t, kernel='denoiser', n=n,
+                  rows=P.tc32_plan(folded, x.device).rows, max_abs_err=err,
+                  rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+            xb = x.bfloat16()
+            got16 = P.DENOISER_BF16(xb, semb, folded)
+            torch.cuda.synchronize()
+            err16, mx, mean, ok16 = bf16_check(
+                got16, P.denoise_reference(xb, semb, folded,
+                                           compute_dtype=torch.bfloat16),
+                BF16_MAX_REL, BF16_MEAN_REL)
+            phase('check_frames', frames=t, kernel='denoiser_bf16', n=n,
+                  rows=P.tc_plan(folded, x.device).rows, max_abs_err=err16,
+                  max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+                  bound_max_rel=BF16_MAX_REL, bound_mean_rel=BF16_MEAN_REL,
+                  ok=ok16)
+            if not (ok and ok16):
+                raise RuntimeError(f'B1 disagrees with its plain version at '
+                                   f'T={t}, N={n}')
+            errs[('denoiser', t, n)], errs[('denoiser_bf16', t, n)] = \
+                err, err16
+    return errs
+
+
+def time_frames_phase(g, peaks, card: str) -> dict:
+    """Phase 18; returns {kernel: (ms, plain ms, bound ms, bound by)} at
+    T = 6, N = 51,200."""
+    _, bf16_peak, tf32_peak, bytes_peak = peaks
+    model, net = seeded_model(frames=6)
+    folded = model.fold(net)
+    x, semb = fold_inputs(folded, N_FOLD, g)
+    xb = x.bfloat16()
+    flops = P.denoiser_flops_per_row(folded) * N_FOLD
+    out = {}
+    for key, kernel, xin, plan, work, peak, io in (
+            ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device), 3,
+             tf32_peak, 4 * (2 * x.numel() + semb.numel())),
+            ('denoiser_bf16', P.DENOISER_BF16, xb,
+             P.tc_plan(folded, x.device), 1, bf16_peak,
+             2 * 2 * x.numel() + 4 * semb.numel())):
+        ms = time_ms(lambda: kernel(xin, semb, folded))
+        plain_ms = time_ms(lambda: P.denoise_reference(
+            xin, semb, folded, compute_dtype=xin.dtype))
+        b_ms, b_by = bound(work * flops, io + plan.blob.numel(), peak,
+                           bytes_peak)
+        phase('time_frames', frames=6, kernel=key, n=N_FOLD,
+              kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=b_by,
+              bound_share=f'{b_ms / ms:.4f}', rows=plan.rows,
+              records=int(plan.table[0]), smem_bytes=plan.smem_bytes,
+              gflop=f'{flops / 1e9:.2f}',
+              kernel_tflops=f'{flops / ms / 1e9:.2f}', card=repr(card))
+        out[key] = (ms, plain_ms, b_ms, b_by)
+    return out
+
+
+def eval_pass(model, net, ds, cfg, noise):
+    """One `run_inference` pass over `ds` on the given noise: () ->
+    (result, host seconds)."""
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = run_inference(model, net, ds, cfg.batch_size, cfg.seed,
+                          torch.device('cuda'), noise_fn=noise)
+        return r, time.perf_counter() - t
+    return run
+
+
+def concat_phases(cfg, card: str) -> dict:
+    """Phases 19 and 20 on the eval set of `cfg` (the main path's);
+    returns B1's launches on the concat path at each dtype."""
+    model, net = seeded_model(frames=6)
+    ccfg = flagship_config(**{**{k: getattr(cfg, k) for k in (
+        'split', 'n_generated_samples', 'batch_size', 'num_transform',
+        'data_dir', 'ckpt_dir', 'gt_path', 'use_hr', 'vid_res', 'seed')},
+        **FRAMES[6], 'load_ckpt': 'concat_weights.ckpt'})
+    torch.save({'state_dict': net.state_dict()},
+               os.path.join(ccfg.ckpt_dir, ccfg.load_ckpt))
+    model, ds, res, counts, seconds, auc = main_path(ccfg, 'float32')
+    n_batches = -(-len(ds) // ccfg.batch_size)
+    phase('main_concat', frames=model.input_n_frames, windows=len(ds),
+          batches=n_batches, launches=counts['denoiser'],
+          seconds=f'{seconds:.3f}', windows_per_s=f'{len(ds) / seconds:.1f}',
+          auc=f'{auc:.6f}', card=repr(card))
+    check_main_launches(counts, 'denoiser', n_batches, 'concat float32')
+    launches = {'denoiser': counts['denoiser']}
+    noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
+                         model.n_frames_corrupt, model.n_joints)
+    lk = None
+    for dtype, key in (('float32', 'denoiser'), ('bfloat16', 'denoiser_bf16')):
+        ccfg.extras['eval_dtype'] = dtype
+        run = eval_pass(M.MoCoDADModel(ccfg), net, ds, ccfg, noise)
+        reset_launches()
+        r_k, s_k = run()
+        counts = launch_counts()
+        check_main_launches(counts, key, n_batches, f'concat {dtype}')
+        with plain_denoiser():
+            r_p, s_p = run()
+        got, want = torch.from_numpy(r_k['loss']), torch.from_numpy(
+            r_p['loss'])
+        if dtype == 'float32':
+            lk = got
+            err, ok = max_rel_excess(got, want, PATH_RTOL, PATH_ATOL)
+            extra = dict(rtol=PATH_RTOL, atol=PATH_ATOL)
+        else:
+            err, mx, mean, ok = bf16_check(got, want, PATH_BF16_MAX_REL,
+                                           PATH_BF16_MEAN_REL)
+            _, vs32_rel, _ = rel_errors(got, lk)
+            extra = dict(max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+                         bound_max_rel=PATH_BF16_MAX_REL,
+                         bound_mean_rel=PATH_BF16_MEAN_REL,
+                         vs_float32_max_rel=f'{vs32_rel:.3e}')
+        phase('agree_concat' if dtype == 'float32' else 'agree_concat_bf16',
+              windows=len(got), launches=counts[key], max_abs_err=err,
+              **extra, ok=ok,
+              kernel_windows_per_s=f'{len(ds) / s_k:.1f}',
+              plain_windows_per_s=f'{len(ds) / s_p:.1f}')
+        if not ok:
+            raise RuntimeError(f'the concat path at {dtype} through the '
+                               f'kernel disagrees with the plain version')
+        launches.setdefault(key, counts[key])
+        profile_phase('profile_concat' if dtype == 'float32' else
+                      'profile_concat_bf16', run)
+    return launches
+
+
+def strategies_phase(ds, card: str) -> None:
+    """Phase 21 on the first 1024 windows of `ds`."""
+    batch = next(iter(make_loader(ds, 1024)))
+    data = to_device(batch['data'], torch.device('cuda'))
+    for i, (name, kw) in enumerate(STRATEGY_PATHS):
+        model, net = seeded_model(seed=i + 1, **kw)
+        folded = model.fold(net)
+        n_steps = len(model.chain_steps()[0])
+
+        def run():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, loss = model.generate(
+                net, data, torch.Generator('cuda').manual_seed(7),
+                folded=folded)
+            torch.cuda.synchronize()
+            return loss, time.perf_counter() - t
+        run()                                 # the plans, once
+        reset_launches()
+        lk, sk = run()
+        counts = launch_counts()
+        with plain_denoiser():
+            lp, sp = run()
+        err, ok = max_rel_excess(lk, lp, PATH_RTOL, PATH_ATOL)
+        launches_ok = counts['denoiser'] == n_steps and \
+            sum(counts.values()) == n_steps
+        phase('strategies', path=name, frames=model.input_n_frames,
+              steps=n_steps, windows=len(lk), samples=50,
+              launches=counts['denoiser'], max_abs_err=err,
+              rtol=PATH_RTOL, atol=PATH_ATOL, ok=ok and launches_ok,
+              kernel_windows_per_s=f'{len(lk) / sk:.1f}',
+              plain_windows_per_s=f'{len(lk) / sp:.1f}', card=repr(card))
+        if not (ok and launches_ok):
+            raise RuntimeError(f'{name}: kernel against plain {err}, '
+                               f'launches {counts}')
 
 
 def main() -> int:
@@ -670,13 +909,7 @@ def main() -> int:
         noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
                              model.n_frames_corrupt, model.n_joints)
 
-        def run(m=model):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = run_inference(m, net2, ds, cfg.batch_size, cfg.seed,
-                              dev, noise_fn=noise)
-            return r, time.perf_counter() - t
-
+        run = eval_pass(model, net2, ds, cfg, noise)
         r_kernel, s_kernel = run()
         with plain_denoiser():
             r_plain, s_plain = run()
@@ -900,9 +1133,10 @@ def main() -> int:
             entries[key]['launches'] = counts[key]
 
         # 11. the bfloat16 path through the kernel and the plain version
-        r16_kernel, s16_kernel = run(model16)
+        run16 = eval_pass(model16, net2, ds, cfg, noise)
+        r16_kernel, s16_kernel = run16()
         with plain_denoiser():
-            r16_plain, s16_plain = run(model16)
+            r16_plain, s16_plain = run16()
         lk16 = torch.from_numpy(r16_kernel['loss'])
         err, mx, mean, ok = bf16_check(
             lk16, torch.from_numpy(r16_plain['loss']), PATH_BF16_MAX_REL,
@@ -920,7 +1154,7 @@ def main() -> int:
                                'disagrees with the plain version')
 
         # 12. where the time of the bfloat16 pass goes
-        profile_phase('profile_bf16', lambda: run(model16))
+        profile_phase('profile_bf16', run16)
 
         # 13-16. training from a fresh model; no train step launches a
         # kernel (counts from 0 before phases 14-16, read after)
@@ -932,6 +1166,37 @@ def main() -> int:
         if any(launch_counts().values()):
             raise RuntimeError(f'train steps launched kernels: '
                                f'{launch_counts()}')
+
+        # 17-22. B1 at 4 and 6 frames; the other strategies and samplers
+        frame_errs = check_frames_phase(g)
+        frame_times = time_frames_phase(g, peaks_for(name), card)
+        concat_launches = concat_phases(cfg, card)
+        strategies_phase(ds, card)
+        train_phase(data_dir, work, card, name='train_concat', **FRAMES[6])
+        rcfg = train_config(data_dir, os.path.join(work, 'train_random_imp'),
+                            conditioning_strategy='random_imp',
+                            conditioning_indices=3)
+        os.makedirs(rcfg.ckpt_dir, exist_ok=True)
+        order = F.random_order(torch.Generator().manual_seed(5),
+                               rcfg.batch_size, rcfg.seg_len, 3).numpy()
+        reset_launches()
+        # a fresh model's PReLU slopes and first graph mixes have gradients
+        # of 0.3-1 % of the step's largest, sums that cancel: over their
+        # own largest, the card's float32 landed 1.2e-2 (a PReLU slope)
+        # and 4.7e-3 (p1a's A) from float64, the CPU's 5.0e-3 and 1.4e-3
+        # (NVIDIA H100 80GB HBM3, 700.00 W).  So each tensor is held over
+        # 2 % of the step's largest gradient at least, as
+        # tests/test_torch_train_step.py holds the slopes (GRAD_FLOOR)
+        train_agree_phase(rcfg, build_dataset(rcfg, split='train'),
+                          name='train_agree_random_imp', steps=1,
+                          order=order, grad_floor=2e-2)
+        for key in ('denoiser', 'denoiser_bf16'):
+            ms, plain_ms, b_ms, b_by = frame_times[key]
+            entries[key].update(
+                t6_path='main_concat / agree_concat_bf16',
+                t6_launches=concat_launches[key], t6_ms=ms,
+                t6_plain_ms=plain_ms, t6_bound_ms=b_ms, t6_bound_by=b_by,
+                t6_max_abs_err=frame_errs[(key, 6, N_FOLD)])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -70,6 +70,10 @@
 //     through __ldg there, 2.25 GB per call; 220 KB of padded tiles per 4
 //     rows here, 2.8 GB), but it is now one bulk copy per op, issued an op
 //     ahead, instead of loads on the products' critical path.
+//   * Rows per tile are a template parameter, kRows, built for 4 and 2:
+//     the host plans for the most that fit (pack_for_tc_kernel), 4 up to T
+//     = 3 frames at 17 joints, 2 from T = 4 (T = 6, T*V = 102: 222,240 bytes
+//     for 2 rows, 333,728 for 4), and names that count in the launch.
 //   * kRows = 4 fold rows and kWarps = 16 warps per block; the blocks are
 //     persistent (one per SM), walk their tiles of 4 rows, and stage the
 //     next tile's first op during the last op of the current one.  Units
@@ -120,7 +124,6 @@
 namespace mocodad_tc {
 namespace {
 
-constexpr int kRows = 4;
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxTable = 512;   // ints of the table copied to shared memory
@@ -162,6 +165,7 @@ enum {
 
 // x rows n0 .. n0 + kRows - 1 -> each row's x tile (zero padded), silu_emb
 // -> each row's E floats rounded to bf16; rows past N read as 0
+template <int kRows>
 __device__ void load_tile(int tid, char* sm, const int* t,
                           const uint16_t* __restrict__ x,
                           const float* __restrict__ semb, int n, int n0) {
@@ -187,6 +191,7 @@ __device__ void load_tile(int tid, char* sm, const int* t,
 }
 
 // eps = bf16(f + x) for the tile's rows below N
+template <int kRows>
 __device__ void store_tile(int tid, const char* sm, const int* t,
                            uint16_t* __restrict__ eps, int n, int n0) {
   const int row0 = tab(t, H_ROW0), rb = tab(t, H_ROW_BYTES);
@@ -208,6 +213,9 @@ __device__ void store_tile(int tid, const char* sm, const int* t,
 
 // ---- the kernel ------------------------------------------------------------
 
+// kRows fold rows per tile: 4 up to T*V = 51, 2 above (the host plans
+// for the most that fit, pack_for_tc_kernel)
+template <int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 denoiser_kernel_tc(const uint16_t* __restrict__ x,
                    const float* __restrict__ semb,
@@ -232,7 +240,7 @@ denoiser_kernel_tc(const uint16_t* __restrict__ x,
   stage(tid, wbuf[0], blob, tab(ops, O_BLOB), tab(ops, O_BLOB_BYTES));
   for (int tile = blockIdx.x; tile < ntiles; tile += stride) {
     const int n0 = tile * kRows;
-    load_tile(tid, sm, t, x, semb, n, n0);
+    load_tile<kRows>(tid, sm, t, x, semb, n, n0);
     cp_async_wait_all();
     __syncthreads();     // silu_emb (and, first, W_e and b_e) in place
     embed_all<kRows>(tid, sm, t, kRows);
@@ -248,25 +256,17 @@ denoiser_kernel_tc(const uint16_t* __restrict__ x,
       buf ^= 1;
     }
     __syncthreads();
-    store_tile(tid, sm, t, eps, n, n0);
+    store_tile<kRows>(tid, sm, t, eps, n, n0);
     __syncthreads();     // before the next tile's loads overwrite x
   }
 }
 
-}  // namespace
-}  // namespace mocodad_tc
-
-// Launch on `stream`: one persistent block per SM (fewer for a small N).
-// Returns the CUDA error code (0 on success); allocates nothing and does
-// not synchronise.
-extern "C" int mocodad_denoiser_tc_launch(const uint16_t* x,
-                                          const float* semb,
-                                          const char* blob, const int* table,
-                                          uint16_t* eps, int n,
-                                          int smem_bytes, void* stream) {
-  using namespace mocodad_tc;
+template <int kRows>
+int launch(const uint16_t* x, const float* semb, const char* blob,
+           const int* table, uint16_t* eps, int n, int smem_bytes,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      denoiser_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      denoiser_kernel_tc<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -276,17 +276,40 @@ extern "C" int mocodad_denoiser_tc_launch(const uint16_t* x,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n + kRows - 1) / kRows;
   const int grid = tiles < sms ? tiles : sms;
-  denoiser_kernel_tc<<<grid, kThreads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(x, semb, blob,
-                                                            table, eps, n);
+  denoiser_kernel_tc<kRows><<<grid, kThreads, smem_bytes, stream>>>(
+      x, semb, blob, table, eps, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan this build reads: rows per tile, warps per block, the longest
-// table, header and op record lengths.  The host checks all five before
-// the first launch.
-extern "C" int mocodad_denoiser_tc_rows_per_block() {
-  return mocodad_tc::kRows;
+}  // namespace
+}  // namespace mocodad_tc
+
+// Launch on `stream` with `rows` fold rows per tile (4 or 2, what the
+// plan was packed for): one persistent block per SM (fewer for a small
+// N).  Returns the CUDA error code (0 on success); allocates nothing and
+// does not synchronise.
+extern "C" int mocodad_denoiser_tc_launch(const uint16_t* x,
+                                          const float* semb,
+                                          const char* blob, const int* table,
+                                          uint16_t* eps, int n, int rows,
+                                          int smem_bytes, void* stream) {
+  using namespace mocodad_tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 4:
+      return launch<4>(x, semb, blob, table, eps, n, smem_bytes, s);
+    case 2:
+      return launch<2>(x, semb, blob, table, eps, n, smem_bytes, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The plans this build reads: the rows per tile it is built for (a bit
+// mask, bit r for r rows), warps per block, the longest table, header and
+// op record lengths.  The host checks all five before the first launch.
+extern "C" int mocodad_denoiser_tc_row_counts() {
+  return (1 << 4) | (1 << 2);
 }
 extern "C" int mocodad_denoiser_tc_warps_per_block() {
   return mocodad_tc::kWarps;

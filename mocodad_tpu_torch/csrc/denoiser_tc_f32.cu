@@ -118,6 +118,21 @@
 //     embeddings, 944 of prefetch buffer and 2 x 57,920 of activations:
 //     211,728 of the 232,448 bytes a block may use, plus 3,088 of static
 //     shared memory for the table and the two mbarriers.
+//   * More frames.  Rows per tile are a template parameter, kRows, built
+//     for 2 and 1; the host plans for the most that fit and names that
+//     count in the launch.  At T = 6 frames (T*V = 102, the non-inject
+//     strategies at seg_len 6) one row's activations take 105,024 bytes,
+//     so a block holds one row, and a graph operator's K alone outgrows a
+//     weight buffer (p1a: 7 x 13 x 1,024 = 93,184 bytes of fragments;
+//     down1's dense operator 66,560).  Parts of C_out do not help there,
+//     each carries all of K.  But a unit's graph mix needs only the rows
+//     of K of its own 16 output positions, and g chains from there into
+//     the channel mix per 16-position tile: so a record may also cover a
+//     run of the output tiles (O_P0 its first position, O_MT its tiles)
+//     and carry only their rows of K.  Such a split recomputes nothing;
+//     the host picks, per layer, the split over C_out parts and position
+//     runs that fits at the least modelled cost (pack_for_tc_f32_kernel).
+//     At T <= 3 nothing is split over positions and the plan is as before.
 //   * kRows = 2 rows and kWarps = 12 warps per persistent block (one per
 //     SM), `__launch_bounds__(kThreads, 1)`: 168 registers a thread.  With
 //     2 rows an op has only 4-8 units of (row, 16 positions); the host
@@ -151,10 +166,9 @@
 namespace mocodad_tc32 {
 namespace {
 
-constexpr int kRows = 2;
 constexpr int kWarps = TC32_WARPS;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxTable = 768;   // ints of the table copied to shared memory
+constexpr int kMaxTable = 1024;  // ints of the table copied to shared memory
 constexpr int kMaxE = 16;        // embedding width it unrolls for
 
 // table header (offsets in bytes, strides in floats)
@@ -184,6 +198,9 @@ enum {
   O_IN, O_IN_STRIDE, O_OUT, O_OUT_STRIDE, O_SKIP, O_SKIP_STRIDE,
   O_RES,                        // 1: residual mix Wr, 0: identity
   O_C0,                         // first output channel of this record
+  O_P0,                         // first output position of this record (a
+                                //   multiple of 16; its K holds the MT
+                                //   tiles from there)
   O_BLOB, O_BLOB_BYTES,         // the record's constants in the blob
   O_K,                          // K hi/lo in fragment order (bytes)
   O_W, O_W_STRIDE, O_WR,        // float32 (8 NT, W_STRIDE) tiles (bytes)
@@ -350,7 +367,7 @@ __device__ __forceinline__ void chan_mix(float (&acc)[NT][4],
 // is (row, 16 positions, NT of the record's output tiles: its O_NSPLIT
 // parts), walking C_in in chunks of 8 JT channels; `res`: a residual mix
 // (else identity).
-template <int NT, int JT>
+template <int NT, int JT, int kRows>
 __device__ __forceinline__ void gcn_op(char* sm, const int* t, const int* d,
                                        const char* wb, int warp, int lane,
                                        bool res) {
@@ -360,6 +377,7 @@ __device__ __forceinline__ void gcn_op(char* sm, const int* t, const int* d,
   const int es = tab(t, H_EMB_STRIDE);
   const int ci = tab(d, O_CI), tvo = tab(d, O_TVO), mt = tab(d, O_MT);
   const int ks = tab(d, O_KS), ns = tab(d, O_NSPLIT), oc = tab(d, O_C0);
+  const int p0 = tab(d, O_P0);
   const int in_off = tab(d, O_IN), in_st = tab(d, O_IN_STRIDE);
   const int out_off = tab(d, O_OUT), out_st = tab(d, O_OUT_STRIDE);
   const uint4* kf = reinterpret_cast<const uint4*>(wb + tab(d, O_K));
@@ -371,7 +389,7 @@ __device__ __forceinline__ void gcn_op(char* sm, const int* t, const int* d,
   const float slope = *reinterpret_cast<const float*>(wb + tab(d, O_SLOPE));
   const int gid = lane >> 2, tig = lane & 3;
   for (int u = warp; u < kRows * mt * ns; u += kWarps) {
-    const int r = u / (mt * ns), mi = u / ns % mt, m0 = mi * 16;
+    const int r = u / (mt * ns), mi = u / ns % mt, m0 = p0 + mi * 16;
     const int o0 = u % ns * NT * 8;
     char* row = sm + row0 + r * rb;
     const float* f = reinterpret_cast<const float*>(row + in_off);
@@ -453,12 +471,13 @@ __device__ __forceinline__ void gcn_op(char* sm, const int* t, const int* d,
 // One joint re-scaling: h = D f as a graph mix with D dense (its zero
 // blocks add exact zeros), then h * rs + rt and, with a skip, + skip; 0
 // past T*V.  A unit is (row, 16 positions, 32 channels).
+template <int kRows>
 __device__ __forceinline__ void joint_op(int tid, char* sm, const int* t,
                                          const int* d, const char* wb) {
   const int warp = tid >> 5, lane = tid & 31;
   const int row0 = tab(t, H_ROW0), rb = tab(t, H_ROW_BYTES);
   const int cs = tab(d, O_CI), tvo = tab(d, O_TVO), mt = tab(d, O_MT);
-  const int ks = tab(d, O_KS), nc = cs / 32;
+  const int ks = tab(d, O_KS), nc = cs / 32, p0 = tab(d, O_P0);
   const int in_off = tab(d, O_IN), in_st = tab(d, O_IN_STRIDE);
   const int out_off = tab(d, O_OUT), out_st = tab(d, O_OUT_STRIDE);
   const int skip_off = tab(d, O_SKIP), skip_st = tab(d, O_SKIP_STRIDE);
@@ -475,7 +494,7 @@ __device__ __forceinline__ void joint_op(int tid, char* sm, const int* t,
     float2 y[4][2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = mi * 16 + gid + h * 8;
+      const int p = p0 + mi * 16 + gid + h * 8;
       const float s = rs[p], b = rt[p];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -497,7 +516,7 @@ __device__ __forceinline__ void joint_op(int tid, char* sm, const int* t,
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<float2*>(
             reinterpret_cast<float*>(row + out_off) +
-            (mi * 16 + gid + h * 8) * out_st + c0 + j * 8 + tig * 2) =
+            (p0 + mi * 16 + gid + h * 8) * out_st + c0 + j * 8 + tig * 2) =
             y[j][h];
   }
 }
@@ -506,6 +525,7 @@ __device__ __forceinline__ void joint_op(int tid, char* sm, const int* t,
 // emb[r][q] = sum_e W_e^T[e][q] silu_emb[r][e] + b_e[q], q over all
 // layers' (padded) output channels, W_e^T and b_e read through __ldg (a
 // warp's loads are consecutive); a thread takes one q for every row
+template <int kRows>
 __device__ __forceinline__ void embed_all(int tid, char* sm, const int* t,
                                           const char* __restrict__ blob) {
   const int row0 = tab(t, H_ROW0), rb = tab(t, H_ROW_BYTES);
@@ -536,38 +556,39 @@ __device__ __forceinline__ void embed_all(int tid, char* sm, const int* t,
   }
 }
 
-template <int JT>
+template <int JT, int kRows>
 __device__ __forceinline__ void gcn_units(char* sm, const int* t,
                                           const int* d, const char* wb,
                                           int warp, int lane) {
   const bool res = tab(d, O_RES) != 0;
   switch (tab(d, O_NT) / tab(d, O_NSPLIT)) {   // the host packs only these
     case 1:
-      gcn_op<1, JT>(sm, t, d, wb, warp, lane, res);
+      gcn_op<1, JT, kRows>(sm, t, d, wb, warp, lane, res);
       break;
     case 2:
-      gcn_op<2, JT>(sm, t, d, wb, warp, lane, res);
+      gcn_op<2, JT, kRows>(sm, t, d, wb, warp, lane, res);
       break;
     case 4:
-      gcn_op<4, JT>(sm, t, d, wb, warp, lane, res);
+      gcn_op<4, JT, kRows>(sm, t, d, wb, warp, lane, res);
       break;
     default:
       break;
   }
 }
 
+template <int kRows>
 __device__ __forceinline__ void run_op(int tid, char* sm, const int* t,
                                        const int* d, const char* wb) {
   const int warp = tid >> 5, lane = tid & 31;
   if (tab(d, O_KIND) == 1) {
-    joint_op(tid, sm, t, d, wb);
+    joint_op<kRows>(tid, sm, t, d, wb);
     return;
   }
   // chunks of 32 input channels where C_in allows, else 16
   if (tab(d, O_CI) % 32 == 0)
-    gcn_units<4>(sm, t, d, wb, warp, lane);
+    gcn_units<4, kRows>(sm, t, d, wb, warp, lane);
   else
-    gcn_units<2>(sm, t, d, wb, warp, lane);
+    gcn_units<2, kRows>(sm, t, d, wb, warp, lane);
 }
 
 // ---- tile I/O --------------------------------------------------------------
@@ -576,6 +597,7 @@ __device__ __forceinline__ void run_op(int tid, char* sm, const int* t,
 // buffer, one 4-byte cp.async each (the rows of a tile are 8 bytes apart
 // in device memory), as one group: issued a tile ahead, so that their
 // latency hides behind the current tile's ops
+template <int kRows>
 __device__ __forceinline__ void prefetch_tile(int tid, char* sm,
                                               const int* t,
                                               const float* __restrict__ x,
@@ -598,6 +620,7 @@ __device__ __forceinline__ void prefetch_tile(int tid, char* sm,
 
 // the prefetch buffer -> each row's x tile (zero padded) and silu_emb;
 // rows past N read as 0
+template <int kRows>
 __device__ __forceinline__ void load_tile(int tid, char* sm, const int* t,
                                           int n, int n0) {
   const int row0 = tab(t, H_ROW0), rb = tab(t, H_ROW_BYTES);
@@ -620,6 +643,7 @@ __device__ __forceinline__ void load_tile(int tid, char* sm, const int* t,
 }
 
 // eps = f + x for the tile's rows below N
+template <int kRows>
 __device__ __forceinline__ void store_tile(int tid, const char* sm,
                                            const int* t,
                                            float* __restrict__ eps, int n,
@@ -641,6 +665,9 @@ __device__ __forceinline__ void store_tile(int tid, const char* sm,
 
 // ---- the kernel ------------------------------------------------------------
 
+// kRows fold rows per tile: 2 up to T = 4 frames at 17 joints, 1 above
+// (the host plans for the most that fit, pack_for_tc_f32_kernel)
+template <int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 denoiser_kernel_tc32(const float* __restrict__ x,
                      const float* __restrict__ semb,
@@ -671,16 +698,16 @@ denoiser_kernel_tc32(const float* __restrict__ x,
     stage(smem_addr(sm + wb0), blob + tab(ops, O_BLOB),
           tab(ops, O_BLOB_BYTES), bar[0]);
   if (static_cast<int>(blockIdx.x) < ntiles)
-    prefetch_tile(tid, sm, t, x, semb, n, blockIdx.x * kRows);
+    prefetch_tile<kRows>(tid, sm, t, x, semb, n, blockIdx.x * kRows);
   for (int tile = blockIdx.x; tile < ntiles; tile += stride) {
     const int n0 = tile * kRows;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();     // this tile's x and silu_emb have arrived
-    load_tile(tid, sm, t, n, n0);
+    load_tile<kRows>(tid, sm, t, n, n0);
     __syncthreads();     // x and silu_emb in place, the prefetch buffer free
     if (tile + stride < ntiles)
-      prefetch_tile(tid, sm, t, x, semb, n, (tile + stride) * kRows);
-    embed_all(tid, sm, t, blob);
+      prefetch_tile<kRows>(tid, sm, t, x, semb, n, (tile + stride) * kRows);
+    embed_all<kRows>(tid, sm, t, blob);
     for (int op = 0; op < nops; ++op) {
       mbar_wait(buf ? bar[1] : bar[0], parity >> buf & 1);
       parity ^= 1u << buf;
@@ -691,23 +718,21 @@ denoiser_kernel_tc32(const float* __restrict__ x,
         stage(smem_addr(sm + (buf ? wb0 : wb1)),
               blob + tab(ops + next * O_LEN, O_BLOB),
               tab(ops + next * O_LEN, O_BLOB_BYTES), buf ? bar[0] : bar[1]);
-      run_op(tid, sm, t, ops + op * O_LEN, sm + (buf ? wb1 : wb0));
+      run_op<kRows>(tid, sm, t, ops + op * O_LEN, sm + (buf ? wb1 : wb0));
       buf ^= 1;
     }
     __syncthreads();
-    store_tile(tid, sm, t, eps, n, n0);
+    store_tile<kRows>(tid, sm, t, eps, n, n0);
     __syncthreads();     // before the next tile's loads overwrite x
   }
 }
 
-// Launch on `stream`: one persistent block per SM (fewer for a small N).
-// Returns the CUDA error code (0 on success); allocates nothing and does
-// not synchronise.
-int launch(const float* x, const float* semb, const char* blob,
-           const int* table, float* eps, int n, int smem_bytes,
-           void* stream) {
+template <int kRows>
+int launch_rows(const float* x, const float* semb, const char* blob,
+                const int* table, float* eps, int n, int smem_bytes,
+                void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      denoiser_kernel_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      denoiser_kernel_tc32<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -717,10 +742,27 @@ int launch(const float* x, const float* semb, const char* blob,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n + kRows - 1) / kRows;
   const int grid = tiles < sms ? tiles : sms;
-  denoiser_kernel_tc32<<<grid, kThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(x, semb, blob,
-                                                              table, eps, n);
+  denoiser_kernel_tc32<kRows><<<grid, kThreads, smem_bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, semb, blob, table, eps, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch on `stream` with `rows` fold rows per tile (2 or 1, what the plan
+// was packed for): one persistent block per SM (fewer for a small N).
+// Returns the CUDA error code (0 on success); allocates nothing and does
+// not synchronise.
+int launch(const float* x, const float* semb, const char* blob,
+           const int* table, float* eps, int n, int rows, int smem_bytes,
+           void* stream) {
+  switch (rows) {
+    case 2:
+      return launch_rows<2>(x, semb, blob, table, eps, n, smem_bytes, stream);
+    case 1:
+      return launch_rows<1>(x, semb, blob, table, eps, n, smem_bytes, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -730,9 +772,9 @@ int launch(const float* x, const float* semb, const char* blob,
 extern "C" int mocodad_denoiser_tc32_launch(const float* x, const float* semb,
                                             const char* blob,
                                             const int* table, float* eps,
-                                            int n, int smem_bytes,
+                                            int n, int rows, int smem_bytes,
                                             void* stream) {
-  return mocodad_tc32::launch(x, semb, blob, table, eps, n, smem_bytes,
+  return mocodad_tc32::launch(x, semb, blob, table, eps, n, rows, smem_bytes,
                               stream);
 }
 
@@ -743,17 +785,17 @@ extern "C" int mocodad_denoiser_tc32_launch(const float* x, const float* semb,
 // under B3's name, so that its launches are counted apart from B1's.
 extern "C" int mocodad_dma_tc32_launch(const float* x, const float* semb,
                                        const char* blob, const int* table,
-                                       float* eps, int n, int smem_bytes,
-                                       void* stream) {
-  return mocodad_tc32::launch(x, semb, blob, table, eps, n, smem_bytes,
+                                       float* eps, int n, int rows,
+                                       int smem_bytes, void* stream) {
+  return mocodad_tc32::launch(x, semb, blob, table, eps, n, rows, smem_bytes,
                               stream);
 }
 
-// The plan this build reads: rows per tile, warps per block, the longest
-// table, header and op record lengths.  The host checks all five before
-// the first launch.
-extern "C" int mocodad_denoiser_tc32_rows_per_block() {
-  return mocodad_tc32::kRows;
+// The plans this build reads: the rows per tile it is built for (a bit
+// mask, bit r for r rows), warps per block, the longest table, header and
+// op record lengths.  The host checks all five before the first launch.
+extern "C" int mocodad_denoiser_tc32_row_counts() {
+  return (1 << 2) | (1 << 1);
 }
 extern "C" int mocodad_denoiser_tc32_warps_per_block() {
   return mocodad_tc32::kWarps;

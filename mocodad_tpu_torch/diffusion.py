@@ -5,7 +5,7 @@ utils/diffusion_utils.py: cosine schedule via squared-cosine alpha-bar,
 `betas_for_alpha_bar` :8-14).  The tables are float32 NumPy arrays built
 exactly as the JAX package builds them, so they are bit-equal; the reverse
 chain itself lives in `models/mocodad.py`, the forward noising of training
-here.  The DDIM sampler is not ported yet.
+here, with the DDIM sampler's timesteps and coefficients.
 """
 
 from __future__ import annotations
@@ -114,3 +114,39 @@ def forward_noise(schedule: DiffusionSchedule, x: torch.Tensor,
         eps = torch.randn(x.shape, generator=generator, device=x.device,
                           dtype=x.dtype)
     return sqrt_a * x + sqrt_1ma * eps, eps
+
+
+def ddim_timesteps(noise_steps: int, n_steps: int) -> np.ndarray:
+    """Descending timestep subsequence for DDIM sampling
+    (mocodad_tpu/diffusion.py:116-131): `n_steps` (about) evenly spaced
+    integers of [1, noise_steps-1], the top step always included;
+    `n_steps >= noise_steps-1` gives the full DDPM sequence."""
+    full = noise_steps - 1
+    n = max(1, min(int(n_steps), full))
+    if n == 1:
+        ts = np.array([full], dtype=np.int64)
+    else:
+        ts = np.unique(np.round(np.linspace(1, full, n)).astype(np.int64))
+    return ts[::-1].copy()
+
+
+def ddim_plan(schedule: DiffusionSchedule, ts_desc: np.ndarray,
+              eta: float = 0.0
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-step coefficients (c_x, c_eps, c_z), float32, of the DDIM update
+        x <- c_x * x + c_eps * eps_hat + c_z * z,      z ~ N(0, I)
+    (Song et al. 2021, eq. 12), computed on the host in float64 as
+    mocodad_tpu/diffusion.py:134-168 computes them.  Step i moves from
+    ts_desc[i] to ts_desc[i+1], the last to the clean sample (alpha-bar 1,
+    so its c_z is 0 for any eta); eta = 0 is the deterministic sampler."""
+    ts_desc = np.asarray(ts_desc, dtype=np.int64)
+    ah_t = schedule.alpha_hat[ts_desc].astype(np.float64)
+    ah_prev = np.concatenate(
+        [schedule.alpha_hat[ts_desc[1:]].astype(np.float64), [1.0]])
+    sigma = eta * np.sqrt((1.0 - ah_prev) / (1.0 - ah_t)) \
+        * np.sqrt(np.maximum(1.0 - ah_t / ah_prev, 0.0))
+    c_x = np.sqrt(ah_prev / ah_t)
+    c_eps = np.sqrt(np.maximum(1.0 - ah_prev - sigma ** 2, 0.0)) \
+        - c_x * np.sqrt(1.0 - ah_t)
+    return (c_x.astype(np.float32), c_eps.astype(np.float32),
+            sigma.astype(np.float32))

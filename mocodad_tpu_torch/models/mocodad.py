@@ -1,21 +1,29 @@
 """MoCoDAD: the network container and multi-sample generation.
 
 PyTorch counterpart of `mocodad_tpu/models/mocodad.py` (reference
-models/mocodad.py).  The port covers the inject family with the AE / E
-condition encoders and the STSAEUnet denoiser: the training loss of
-`loss` (at `train_dtype` float32 or bfloat16) and the DDPM chain of
-`generate` (at `eval_dtype` float32 or bfloat16).  The other conditioning
-strategies, the latent variant and the DDIM / antithetic samplers are not
-ported yet and raise NotImplementedError, as does any other dtype.
+models/mocodad.py).  The port covers every conditioning strategy (inject
+with the AE / E / E_unet condition encoders, concat, inbetween_imp,
+random_imp, no_condition) and the STSAEUnet denoiser: the training loss of
+`loss` (at `train_dtype` float32 or bfloat16) and the DDPM or DDIM chain of
+`generate`, with antithetic draws on request (at `eval_dtype` float32 or
+bfloat16).  The latent variant is not ported yet and raises
+NotImplementedError, as does any other dtype.
 
 Generation folds the sample axis S into the batch, b-major
-(row = b*S + s), and runs the 9-step chain with the sampler state in the
+(row = b*S + s), and runs the chain with the sampler state in the
 denoiser's (C, T*V, N) layout, as `build_pallas_eval` does
-(mocodad_tpu/models/mocodad.py:502-567): each step computes
-silu(cond_emb + t_emb) once as (E, N) in float32, calls
-`ops.pallas_unet.denoise` (the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor), and applies the DDPM update
-c1 (x - c2 eps) + c3 z in float32, with z = 0 at t == 1.
+(mocodad_tpu/models/mocodad.py:502-567): each step assembles the U-Net
+input in that layout (the conditioning frames beside the chain's for
+concat and the imputation strategies, `frames.assemble_ctn`), computes
+silu(cond_emb + t_emb) for inject, or silu(t_emb) for the others, once as
+(E, N) in float32, calls `ops.pallas_unet.denoise` (the CUDA kernel B1 on
+a CUDA tensor, at every frame count the strategies give, its plain version
+on a CPU tensor), keeps the corrupted frames' eps, and applies the DDPM
+update c1 (x - c2 eps) + c3 z (z = 0 at t == 1) or the DDIM update
+c_x x + c_eps eps (+ c_z z when eta != 0) in float32.  The JAX package runs
+the non-inject strategies through its XLA forward (`_make_denoise_fn`,
+:569-583); B1 computes the same function at any T when given silu(t_emb),
+so here it is the denoiser of every strategy.
 
 `eval_dtype: bfloat16` follows `build_pallas_eval` (:516-565), which runs
 the JAX package's kernel B1, and not the JAX `generate()` at bfloat16
@@ -26,7 +34,8 @@ the condition encoder runs in float32; x is bfloat16 between steps
 (:539, :557), and the denoiser computes in bfloat16 with float32
 accumulation; each step's update is computed in float32 from the
 float32 eps, with z drawn in float32 (:548-557), then rounded back to
-bfloat16; the losses are float32 (:562-565).
+bfloat16; the losses are float32 (:562-565).  The conditioning frames of
+an assembled input are rounded to bfloat16 as they enter the kernel.
 """
 
 from __future__ import annotations
@@ -38,13 +47,15 @@ import torch
 from torch import nn
 
 from mocodad_tpu_torch.config import Config, effective_n_generated_samples
-from mocodad_tpu_torch.diffusion import (DiffusionSchedule,
+from mocodad_tpu_torch.diffusion import (DiffusionSchedule, ddim_plan,
+                                         ddim_timesteps,
                                          ddpm_step_coefficients,
                                          forward_noise, make_schedule,
                                          sample_timesteps)
 from mocodad_tpu_torch.models import frames as F
 from mocodad_tpu_torch.models.losses import aggregate, elementwise_loss
-from mocodad_tpu_torch.nn import STSAE, STSE, STSAEUnet, sinusoidal_pos_encoding
+from mocodad_tpu_torch.nn import (STSAE, STSE, STSAEUnet, STSEUnet,
+                                  sinusoidal_pos_encoding)
 from mocodad_tpu_torch.ops.pallas_unet import (FoldedDenoiser, denoise,
                                                fold_denoiser)
 
@@ -59,6 +70,16 @@ def _dtype_key(cfg: Config, key: str) -> torch.dtype:
     return EVAL_DTYPES[name]
 
 
+def _mirror_fold(z_half: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, ceil(S/2), ...) independent gaussians -> the (S*B, ...) b-major
+    sample fold where each window's samples are [z_0..z_{h-1},
+    -z_0..-z_{s-h-1}], antithetic pairs (mocodad_tpu/models/mocodad.py
+    :36-42)."""
+    b, h = z_half.shape[:2]
+    z = torch.cat([z_half, -z_half[:, :s - h]], dim=1)
+    return z.reshape((s * b,) + tuple(z_half.shape[2:]))
+
+
 class MoCoDADNet(nn.Module):
     """The condition encoder and the main U-Net in one module, named as the
     reference's LightningModule (`condition_encoder`, `model`;
@@ -71,30 +92,40 @@ class MoCoDADNet(nn.Module):
                  latent_dim: int, channels, n_frames_condition: int,
                  input_n_frames: int):
         super().__init__()
-        if strategy != 'inject':
-            raise NotImplementedError(
-                f'conditioning strategy {strategy!r} is not ported yet')
-        if conditioning_architecture == 'AE':
-            enc = STSAE
-        elif conditioning_architecture == 'E':
-            enc = STSE
-        else:
-            raise NotImplementedError(
-                f'conditioning architecture {conditioning_architecture!r} is '
-                'not ported yet')
-        self.condition_encoder = enc(
-            c_in=num_coords, h_dim=h_dim, latent_dim=latent_dim,
-            n_frames=n_frames_condition, n_joints=n_joints,
-            layer_channels=tuple(channels), dropout=dropout)
+        self.condition_encoder = None
+        if strategy == 'inject':
+            if conditioning_architecture in ('AE', 'E'):
+                enc = STSAE if conditioning_architecture == 'AE' else STSE
+                self.condition_encoder = enc(
+                    c_in=num_coords, h_dim=h_dim, latent_dim=latent_dim,
+                    n_frames=n_frames_condition, n_joints=n_joints,
+                    layer_channels=tuple(channels), dropout=dropout)
+            elif conditioning_architecture == 'E_unet':
+                self.condition_encoder = STSEUnet(
+                    c_in=num_coords, embedding_dim=None,
+                    latent_dim=latent_dim, n_frames=n_frames_condition,
+                    n_joints=n_joints, dropout=dropout, set_out_layer=True)
+            else:
+                raise NotImplementedError(
+                    f'Conditioning architecture {conditioning_architecture} '
+                    'not implemented.')
         self.model = STSAEUnet(c_in=num_coords, embedding_dim=embedding_dim,
                                n_frames=input_n_frames, n_joints=n_joints,
-                               dropout=dropout, inject_condition=True)
+                               dropout=dropout,
+                               inject_condition=(strategy == 'inject'))
 
-    def encode_condition(self, cond: torch.Tensor) -> torch.Tensor:
+    def encode_condition(self, cond: Optional[torch.Tensor]
+                         ) -> Optional[torch.Tensor]:
         """The conditioning latent (ref `_encode_condition`,
-        models/mocodad.py:546-560); the AE's reconstruction is not needed
-        at eval time and is not computed."""
-        return self.condition_encoder.encode(cond)
+        models/mocodad.py:546-560), or None without an encoder or
+        conditioning frames; the AE's reconstruction is not needed at eval
+        time and is not computed."""
+        enc = self.condition_encoder
+        if enc is None or cond is None:
+            return None
+        if isinstance(enc, STSEUnet):
+            return enc(cond)[0]
+        return enc.encode(cond)
 
     def denoise(self, x: torch.Tensor, t: torch.Tensor,
                 cond_emb: Optional[torch.Tensor]) -> torch.Tensor:
@@ -102,11 +133,17 @@ class MoCoDADNet(nn.Module):
         pred, _ = self.model(x, t, cond_emb)
         return pred
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                cond: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(eps prediction, the AE's reconstruction of `cond` or None)
-        (mocodad_tpu/models/mocodad.py:123-125)."""
-        latent, rec = self.condition_encoder(cond)
+        (mocodad_tpu/models/mocodad.py:99-125): E_unet's hidden-state list
+        is no reconstruction."""
+        latent, rec = None, None
+        if self.condition_encoder is not None and cond is not None:
+            latent, rec = self.condition_encoder(cond)
+            if isinstance(rec, list):
+                rec = None
         pred, _ = self.model(x, t, latent)
         return pred, rec
 
@@ -124,9 +161,8 @@ class MoCoDADModel:
         (self.n_frames_condition, self.n_frames_corrupt,
          self.input_n_frames) = cfg.conditioning_split()
         cond_idxs, corrupt_idxs = cfg.cond_corrupt_indices()
-        if cond_idxs is None:
-            raise NotImplementedError('random_imp is not ported yet')
-        self._static_order = F.static_order(cond_idxs, corrupt_idxs)
+        self._static_order = (None if cond_idxs is None else
+                              F.static_order(cond_idxs, corrupt_idxs))
         self.loss_kind = cfg.loss_fn
         self.rec_weight = cfg.rec_weight
         self.aggregation_strategy = cfg.aggregation_strategy
@@ -136,27 +172,47 @@ class MoCoDADModel:
         # the net's forward and backward in training; master params, grads,
         # BN running statistics, the noising and the loss stay float32
         self.train_dtype = _dtype_key(cfg, 'train_dtype')
-        sampler = str(cfg.extras.get('sampler', 'ddpm'))
-        if sampler != 'ddpm':
-            raise NotImplementedError(
-                f'sampler {sampler!r} is not ported yet (ddpm only)')
-        if cfg.extras.get('antithetic', False):
-            raise NotImplementedError('antithetic sampling is not ported yet')
+        # the reverse sampler (mocodad_tpu/models/mocodad.py:199-218):
+        # 'ddpm', the reference chain, or 'ddim' over `ddim_steps` timesteps
+        # with noise scale `ddim_eta`; antithetic draws mirror half the
+        # gaussians per window
+        self.sampler = str(cfg.extras.get('sampler', 'ddpm'))
+        if self.sampler not in ('ddpm', 'ddim'):
+            raise ValueError(f"sampler must be 'ddpm' or 'ddim', "
+                             f"got {self.sampler!r}")
+        self.ddim_steps = int(cfg.extras.get('ddim_steps',
+                                             cfg.noise_steps - 1))
+        self.ddim_eta = float(cfg.extras.get('ddim_eta', 0.0))
+        self.antithetic = bool(cfg.extras.get('antithetic', False))
         self.n_generated_samples = effective_n_generated_samples(cfg)
         self._device_tables = {}
 
     def tables(self, device: torch.device
-               ) -> Tuple[torch.Tensor, DiffusionSchedule]:
-        """The frame order and the schedule with its alpha-bar table, as
-        tensors on `device`, copied there once: a copy from pageable host
-        memory inside a step would stall the host until the card is idle."""
+               ) -> Tuple[Optional[torch.Tensor], DiffusionSchedule]:
+        """The static frame order (None for random_imp) and the schedule
+        with its alpha-bar table, as tensors on `device`, copied there
+        once: a copy from pageable host memory inside a step would stall
+        the host until the card is idle."""
         out = self._device_tables.get(device)
         if out is None:
-            out = (torch.as_tensor(self._static_order, device=device),
+            out = (None if self._static_order is None else
+                   torch.as_tensor(self._static_order, device=device),
                    self.schedule._replace(alpha_hat=torch.as_tensor(
                        self.schedule.alpha_hat, device=device)))
             self._device_tables[device] = out
         return out
+
+    def frame_order(self, generator: Optional[torch.Generator], batch: int,
+                    device: Optional[torch.device] = None):
+        """(T,) static or (B, T) random frame order on `device` (the
+        generator's by default); see models/frames.py
+        (mocodad_tpu/models/mocodad.py:253-258)."""
+        if device is None:
+            device = generator.device if generator is not None else 'cpu'
+        if self._static_order is not None:
+            return self.tables(torch.device(device))[0]
+        return F.random_order(generator, batch, self.n_frames,
+                              self.n_frames_condition, device=device)
 
     def build_net(self) -> MoCoDADNet:
         cfg = self.cfg
@@ -202,9 +258,11 @@ class MoCoDADModel:
         and 'loss', detached.
         """
         b = data.shape[0]
-        order, schedule = self.tables(data.device)
+        schedule = self.tables(data.device)[1]
+        order = self.frame_order(generator, b, data.device)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
+        inject_cond = cond_data if self.strategy == 'inject' else None
         if noise_override is not None:
             t, eps = noise_override
             t = torch.as_tensor(t, device=data.device).long()
@@ -219,14 +277,16 @@ class MoCoDADModel:
                                 self.n_frames_condition)
         dt = self.train_dtype if net.training else torch.float32
         if dt == torch.float32:
-            pred, rec = net(x_in, t, cond_data)
+            pred, rec = net(x_in, t, inject_cond)
         else:
             # params cast inside the differentiated graph, so their grads
             # land on the float32 masters; the BN buffers are not passed,
             # so the module's own float32 accumulators update
             params = {k: p.to(dt) for k, p in net.named_parameters()}
             pred, rec = torch.func.functional_call(
-                net, params, (x_in.to(dt), t, cond_data.to(dt)))
+                net, params, (x_in.to(dt), t,
+                              None if inject_cond is None
+                              else inject_cond.to(dt)))
             pred = pred.float()
             rec = None if rec is None else rec.float()
         pred = F.extract_corrupt(self.strategy, pred, order,
@@ -243,6 +303,14 @@ class MoCoDADModel:
         metrics['loss'] = loss.detach()
         return loss, metrics
 
+    def chain_steps(self) -> Tuple[np.ndarray, Optional[tuple]]:
+        """The chain's timesteps, descending, and for DDIM its per-step
+        (c_x, c_eps, c_z) (None for DDPM)."""
+        if self.sampler == 'ddim':
+            ts = ddim_timesteps(self.schedule.noise_steps, self.ddim_steps)
+            return ts, ddim_plan(self.schedule, ts, self.ddim_eta)
+        return np.arange(self.schedule.noise_steps - 1, 0, -1), None
+
     @torch.no_grad()
     def generate(self, net: MoCoDADNet, data: torch.Tensor,
                  rng: Optional[torch.Generator] = None,
@@ -257,18 +325,20 @@ class MoCoDADModel:
 
         net: the network in eval mode (the JAX function's `variables`).
         data: (B, C, T, V) on the device to run on.  rng: a generator on
-        that device, for every gaussian draw (and the 'random'
-        aggregation).  Returns (selected_x, loss_of_selected_x);
-        selected_x is None for loss-only aggregations.
+        that device, for the random_imp frame orders and every gaussian
+        draw (and the 'random' aggregation).  Returns (selected_x,
+        loss_of_selected_x); selected_x is None for loss-only aggregations.
 
         `noise_override`, when given, is `(x0, zs)`: the initial noise
-        (S*B, C, Tc, V) and the per-step noise (noise_steps-1, S*B, C, Tc,
-        V), both in the b-major fold (row = b*S + s); it replaces the
-        gaussian draws so the chain can be compared step for step with the
-        JAX package.  At bfloat16 x0 is rounded to bfloat16 (JAX draws it
-        in bfloat16) and the per-step noise stays float32.  `folded` is
-        `self.fold(net)`, passed in by callers that generate many batches
-        with one set of weights.
+        (S*B, C, Tc, V) and the per-step noise (n_chain_steps, S*B, C, Tc,
+        V), both in the b-major fold (row = b*S + s); n_chain_steps is
+        noise_steps-1 for DDPM and the length of the DDIM timestep
+        sequence for DDIM.  It replaces the gaussian draws (and turns
+        antithetic draws off) so the chain can be compared step for step
+        with the JAX package.  At bfloat16 x0 is rounded to bfloat16 (JAX
+        draws it in bfloat16) and the per-step noise stays float32.
+        `folded` is `self.fold(net)`, passed in by callers that generate
+        many batches with one set of weights.
         """
         aggr = aggr_strategy or self.aggregation_strategy
         s = n_samples or self.n_generated_samples
@@ -279,48 +349,78 @@ class MoCoDADModel:
         if noise_override is None and rng is None:
             raise ValueError('generate needs a torch.Generator (rng) unless '
                              'noise_override is given')
-        cond_data, corrupt_data = F.select_frames(
-            data, self.tables(dev)[0], self.n_frames_condition)
-        cond_emb = net.encode_condition(cond_data)            # (B, E)
-        # (E, S*B), b-major fold: row = b*S + s
-        emb_t = cond_emb.repeat_interleave(s, dim=0).T.contiguous()
-
+        n_cond = self.n_frames_condition
+        order = self.frame_order(rng, b, dev)
+        cond_data, corrupt_data = F.select_frames(data, order, n_cond)
         c, tc, v = self.num_coords, self.n_frames_corrupt, self.n_joints
         n = b * s
-        n_steps = self.schedule.noise_steps - 1
         dt = self.eval_dtype
+        # (E, S*B), b-major fold: row = b*S + s
+        cond_emb = net.encode_condition(
+            cond_data if self.strategy == 'inject' else None)
+        emb_t = (None if cond_emb is None else
+                 cond_emb.repeat_interleave(s, dim=0).T.contiguous())
+        # the conditioning frames in the chain's layout, at the chain's
+        # dtype, for the strategies that put them beside its frames
+        cond_ctn = None
+        if self.strategy not in ('inject', 'no_condition'):
+            cond_ctn = F.to_ctn(cond_data.repeat_interleave(s, dim=0)).to(dt)
+        order_col = F.column_order(torch.as_tensor(order, device=dev), s)
 
-        def to_ctn(z: torch.Tensor) -> torch.Tensor:
-            # (N, C, Tc, V) -> (C, Tc*V, N)
-            return z.to(dev, torch.float32).reshape(n, c, tc * v).permute(
-                1, 2, 0).contiguous()
+        ts, ddim = self.chain_steps()
+        antithetic = self.antithetic and s > 1 and noise_override is None
+
+        def draw() -> torch.Tensor:
+            # (C, Tc*V, N) float32 gaussians
+            if not antithetic:
+                return torch.randn((c, tc * v, n), generator=rng, device=dev)
+            half = torch.randn((b, (s + 1) // 2, c, tc * v), generator=rng,
+                               device=dev)
+            return F.to_ctn(_mirror_fold(half, s))
 
         if noise_override is not None:
             x0, zs = noise_override
             if tuple(x0.shape) != (n, c, tc, v) or \
-                    tuple(zs.shape) != (n_steps, n, c, tc, v):
+                    tuple(zs.shape) != (len(ts), n, c, tc, v):
                 raise ValueError(
                     f'noise_override must be ({n}, {c}, {tc}, {v}) and '
-                    f'({n_steps}, {n}, {c}, {tc}, {v}); got '
+                    f'({len(ts)}, {n}, {c}, {tc}, {v}); got '
                     f'{tuple(x0.shape)} and {tuple(zs.shape)}')
-            x = to_ctn(torch.as_tensor(x0))
+            x = F.to_ctn(torch.as_tensor(x0).to(dev, torch.float32))
         else:
-            x = torch.randn((c, tc * v, n), generator=rng, device=dev)
+            x = draw()
         x = x.to(dt)
-        for i, t in enumerate(range(n_steps, 0, -1)):
+
+        def noise(i: int) -> torch.Tensor:
+            if noise_override is None:
+                return draw()
+            return F.to_ctn(torch.as_tensor(noise_override[1][i]).to(
+                dev, torch.float32))
+
+        for i, t in enumerate(ts.tolist()):
             t_emb = sinusoidal_pos_encoding(
                 torch.full((1,), t, device=dev), self.cfg.embedding_dim)
-            silu_emb = torch.nn.functional.silu(emb_t + t_emb.T).contiguous()
-            eps = denoise(x, silu_emb, folded).float()
-            x32 = x.float()
-            c1, c2, c3 = ddpm_step_coefficients(self.schedule, t)
-            if t > 1:
-                z = (to_ctn(torch.as_tensor(noise_override[1][i]))
-                     if noise_override is not None else
-                     torch.randn(x.shape, generator=rng, device=dev))
-                x = (c1 * (x32 - c2 * eps) + c3 * z).to(dt)
+            if emb_t is None:
+                silu_emb = torch.nn.functional.silu(t_emb).T.expand(
+                    -1, n).contiguous()
             else:
-                x = (c1 * (x32 - c2 * eps)).to(dt)
+                silu_emb = torch.nn.functional.silu(emb_t + t_emb.T)
+            x_in = F.assemble_ctn(self.strategy, cond_ctn, x, order_col,
+                                  n_cond, v)
+            eps = F.extract_ctn(self.strategy, denoise(x_in, silu_emb, folded),
+                                order_col, n_cond, v).float()
+            x32 = x.float()
+            if ddim is not None:
+                cx, ce, cz = (float(a[i]) for a in ddim)
+                x32 = cx * x32 + ce * eps
+                if self.ddim_eta != 0.0:
+                    x32 = x32 + cz * noise(i)
+            else:
+                c1, c2, c3 = ddpm_step_coefficients(self.schedule, t)
+                x32 = c1 * (x32 - c2 * eps)
+                if t > 1:
+                    x32 = x32 + c3 * noise(i)
+            x = x32.to(dt)
         # (C, Tc*V, B*S) -> (S, B, C, Tc, V) for aggregation
         xs = x.float().reshape(c, tc, v, b, s).permute(4, 3, 0, 1, 2)
         return aggregate(aggr, self.loss_kind, xs, corrupt_data,

@@ -135,7 +135,7 @@ def pack_dma_tc(folded: P.FoldedDenoiser) -> TcDmaPlan:
     plus one prefetch slot after its shared memory: the next tile's x and
     silu(emb), TC_ROWS x (C_in * T*V + E) float32.  Raises if they do not
     fit one block's shared memory beside the kernel's table."""
-    plan = P.pack_for_tc_kernel(folded)
+    plan = P.pack_for_tc_kernel(folded, P.TC_ROWS)
     tva = folded.gcn[0].k2.shape[0]
     slot = -(-P.TC_ROWS * (folded.c_in * tva + folded.embedding_dim) * 4
              // 16) * 16
@@ -160,6 +160,13 @@ class TensorCoreDmaKernel(P.TensorCoreDenoiserKernel):
     symbol = 'mocodad_dma_tc_launch'
     prefix = 'mocodad_dma_tc'
     dtype = torch.float32            # of x and eps; the compute is bfloat16
+
+    def constants(self):
+        """B1 bfloat16's table format, built for TC_ROWS rows per tile
+        only."""
+        return {'rows_per_block': P.TC_ROWS, 'warps_per_block': P.TC_WARPS,
+                'max_table': P.TC_MAX_TABLE, 'header_len': len(P.TC_HEADER),
+                'op_len': len(P.TC_OP)}
 
     def plan(self, folded: P.FoldedDenoiser, device) -> TcDmaPlan:
         return dma_tc_plan(folded, device)

@@ -497,9 +497,13 @@ def constants_as(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a).to(dtype)
 
 
+class SharedMemoryError(ValueError):
+    """A kernel's plan does not fit one block's shared memory."""
+
+
 def check_smem(what: str, smem_bytes: int) -> None:
     if smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(
+        raise SharedMemoryError(
             f'the {what} kernel needs {smem_bytes} bytes of shared memory '
             f'for these shapes; a Hopper block has {MAX_SMEM_BYTES}')
 
@@ -533,6 +537,18 @@ def pack_for_kernel(folded: FoldedDenoiser,
                       arena=arena, smem_bytes=smem_bytes)
 
 
+def most_rows(pack: Callable[[int], object], counts: Sequence[int]):
+    """`pack(rows)` for the most rows of `counts` (in falling order) whose
+    plan fits a block's shared memory; raises the fewest rows' error when
+    none does."""
+    for rows in counts[:-1]:
+        try:
+            return pack(rows)
+        except SharedMemoryError:
+            pass
+    return pack(counts[-1])
+
+
 def cached_plan(folded: FoldedDenoiser, key: tuple, device: torch.device,
                 build: Callable[[], object]):
     """`build()` moved to `device`, built once per (key, device)."""
@@ -563,7 +579,9 @@ TC_OP = ('kind', 'ci', 'nt', 'nsplit', 'tvi', 'tvo', 'mt', 'ks', 'in',
          'in_stride', 'out', 'out_stride', 'skip', 'skip_stride', 'res',
          'blob', 'blob_bytes', 'k', 'k_stride', 'w', 'w_stride', 'wr',
          'bias', 'slope', 'rs', 'rt', 'emb')
-TC_ROWS = 4                          # fold rows per tile (kRows)
+TC_ROWS = 4                          # fold rows per tile of B2 and B3
+TC_ROW_COUNTS = (4, 2)               # B1's builds: fold rows per tile
+                                     # (kRows), the most that fits first
 TC_WARPS = 16                        # warps per block (kWarps)
 TC_MAX_TABLE = 512                   # ints of table it copies (kMaxTable)
 TC_UNIT_TILES = (2, 4, 8)            # 8-channel output tiles per unit it
@@ -652,10 +670,11 @@ class TcPlan:
     blob: torch.Tensor               # (b,) uint8, every op's constants
     table: torch.Tensor              # int32: header, then op records
     smem_bytes: int                  # dynamic shared memory per block
+    rows: int                        # fold rows per tile (the build's kRows)
 
     def to(self, device: torch.device) -> 'TcPlan':
         return TcPlan(blob=self.blob.to(device), table=self.table.to(device),
-                      smem_bytes=self.smem_bytes)
+                      smem_bytes=self.smem_bytes, rows=self.rows)
 
 
 def tc_channels(folded: FoldedDenoiser) -> List[int]:
@@ -782,22 +801,28 @@ def tc_semb_bytes(e_dim: int) -> int:
     return -(-e_dim * 4 // 16) * 16
 
 
-def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
+def pack_for_tc_kernel(folded: FoldedDenoiser,
+                       rows: Optional[int] = None) -> TcPlan:
     """Lay the folded constants out for `csrc/denoiser_tc.cu` and plan its
-    shared memory (offsets in bytes, strides in bf16 elements).
+    shared memory (offsets in bytes, strides in bf16 elements) for `rows`
+    fold rows per tile: by default the most of TC_ROW_COUNTS that fit
+    (4 up to T = 3 frames at 17 joints, 2 at T = 4 to 6).
 
     Each op's constants are one 16-byte aligned block of the blob, copied
     whole into a weight buffer (`tc_ops`).  Every layer's W_e (C_out, E)
     bf16, stacked and transposed to (E, sum of C_out), then its b_e float32,
     form the blob's last block, staged once per block.  Shared memory: two
     weight buffers of the largest op's size, the stacked W_e and b_e,
-    every layer's embedding (TC_ROWS x the stacked C_out, float32), then
-    TC_ROWS row areas of x, the skips d1 and d2, silu_emb (float32) and a
+    every layer's embedding (`rows` x the stacked C_out, float32), then
+    `rows` row areas of x, the skips d1 and d2, silu_emb (float32) and a
     work area whose two ends alternate as layer input and output."""
+    if rows is None:
+        return most_rows(lambda r: pack_for_tc_kernel(folded, r),
+                         TC_ROW_COUNTS)
     seq = layer_sequence(folded)
     e_dim, cin = folded.embedding_dim, folded.c_in
     chans = tc_channels(folded)
-    ops, blocks, emb_w, emb_b = tc_ops(folded)
+    ops, blocks, emb_w, emb_b = tc_ops(folded, rows=rows)
     off, row_bytes = tc_row_plan(
         ops, [('x', tc_act_bytes(seq[0][2], cin)),
               ('d1', tc_act_bytes(seq[2][3], chans[3])),
@@ -808,8 +833,8 @@ def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
     embw, emb_stride = tc_embw(emb_w, emb_b)
     embw_off = 2 * wbuf
     emb_off = embw_off + embw.size
-    row0 = emb_off + TC_ROWS * emb_stride * 4
-    smem_bytes = row0 + TC_ROWS * row_bytes
+    row0 = emb_off + rows * emb_stride * 4
+    smem_bytes = row0 + rows * row_bytes
     # the kernel also holds the table in static shared memory
     check_smem('tensor-core denoiser', smem_bytes + 4 * TC_MAX_TABLE)
     header = dict(nops=len(ops), e=e_dim, cin=cin, tva=seq[0][2],
@@ -828,7 +853,7 @@ def pack_for_tc_kernel(folded: FoldedDenoiser) -> TcPlan:
     blob = np.concatenate([p for b in blocks + [embw] for p in b.parts])
     return TcPlan(blob=torch.from_numpy(blob),
                   table=torch.tensor(table, dtype=torch.int32),
-                  smem_bytes=smem_bytes)
+                  smem_bytes=smem_bytes, rows=rows)
 
 
 def tc_plan(folded: FoldedDenoiser, device: torch.device) -> TcPlan:
@@ -850,11 +875,12 @@ TC32_HEADER = ('nops', 'e', 'cin', 'tva', 'tvap', 'row0', 'row_bytes',
                'pbuf_off')
 TC32_OP = ('kind', 'ci', 'nt', 'nsplit', 'tvi', 'tvo', 'mt', 'ks', 'in',
            'in_stride', 'out', 'out_stride', 'skip', 'skip_stride', 'res',
-           'c0', 'blob', 'blob_bytes', 'k', 'w', 'w_stride', 'wr', 'bias',
-           'slope', 'rs', 'rt', 'emb')
-TC32_ROWS = 2                        # fold rows per tile (kRows)
+           'c0', 'p0', 'blob', 'blob_bytes', 'k', 'w', 'w_stride', 'wr',
+           'bias', 'slope', 'rs', 'rt', 'emb')
+TC32_ROW_COUNTS = (2, 1)             # its builds: fold rows per tile
+                                     # (kRows), the most that fits first
 TC32_WARPS = 12                      # warps per block (kWarps)
-TC32_MAX_TABLE = 768                 # ints of table it copies (kMaxTable)
+TC32_MAX_TABLE = 1024                # ints of table it copies (kMaxTable)
 TC32_STATIC_SMEM = 4 * TC32_MAX_TABLE + 16   # the table and two mbarriers
 TC32_MAX_E = 16                      # embedding width it unrolls for (kMaxE)
 TC32_UNIT_TILES = (1, 2, 4)          # 8-channel output tiles per unit it
@@ -865,14 +891,14 @@ def pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def tc32_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool,
-                warps: int = TC32_WARPS) -> int:
-    """Parts of one op record's output tiles over its `units` (row, 16
-    positions): the split that makes the busiest warp's MMA count least
-    (rounds of units over `warps` warps; per 16-channel chunk a unit
-    issues 2 x ks graph-mix products and 2 channel-mix products per output
-    tile, 4 with a residual mix, and recomputes its graph mix in every
-    part), fewest parts on a tie."""
+def tc32_split(units: int, chunks: int, ks: int, nt: int, res: bool,
+               warps: int = TC32_WARPS) -> Tuple[int, int]:
+    """(the busiest warp's MMAs, parts) for one op record's output tiles
+    split over its `units` (row, 16 positions): the split that makes the
+    busiest warp's MMA count least (rounds of units over `warps` warps;
+    per 16-channel chunk a unit issues 2 x ks graph-mix products and 2
+    channel-mix products per output tile, 4 with a residual mix, and
+    recomputes its graph mix in every part), fewest parts on a tie."""
     def cost(ns):
         per_unit = chunks * (2 * ks + (4 if res else 2) * nt // ns)
         return -(-units * ns // warps) * per_unit
@@ -882,7 +908,13 @@ def tc32_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool,
         raise ValueError(f'the float32 tensor-core denoiser cannot split '
                          f'{8 * nt} output channels into units of '
                          f'{[8 * t for t in TC32_UNIT_TILES]}')
-    return min(fits, key=lambda ns: (cost(ns), ns))
+    return min((cost(ns), ns) for ns in fits)
+
+
+def tc32_nsplit(units: int, chunks: int, ks: int, nt: int, res: bool,
+                warps: int = TC32_WARPS) -> int:
+    """The parts of `tc32_split`."""
+    return tc32_split(units, chunks, ks, nt, res, warps)[1]
 
 
 def tc32_stride(c: int) -> int:
@@ -943,13 +975,26 @@ def tc32_parts_bytes(mt: int, ks: int, ci: int, nt: int, res: bool) -> int:
             tc32_stride(ci) * 4 + -(-8 * nt * 4 // 16) * 16 + 16)
 
 
-def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
-                           warps: int = TC32_WARPS) -> TcPlan:
+def tile_parts(mt: int, parts: int) -> List[Tuple[int, int]]:
+    """`mt` 16-position tiles as `parts` runs (first tile, tiles), the
+    longer runs first."""
+    runs, start = [], 0
+    for j in range(parts):
+        size = mt // parts + (1 if j < mt % parts else 0)
+        runs.append((start, size))
+        start += size
+    return runs
+
+
+def pack_for_tc_f32_kernel(folded: FoldedDenoiser, warps: int = TC32_WARPS,
+                           rows: Optional[int] = None) -> TcPlan:
     """Lay the folded constants out for `csrc/denoiser_tc_f32.cu` and plan
     its shared memory (offsets in bytes, strides in floats), for a build
-    with `warps` warps per block: two weight buffers, every layer's
+    with `warps` warps per block and `rows` fold rows per tile (by default
+    the most of TC32_ROW_COUNTS that fit: 2 up to T = 4 frames at 17
+    joints, 1 at T = 5 and 6): two weight buffers, every layer's
     embedding, a prefetch buffer for the next tile's x and silu_emb, then
-    TC32_ROWS row areas.
+    `rows` row areas.
 
     One row's area: x, the skips d1 and d2, silu_emb, then a work area
     whose two ends alternate as layer input and output, every activation a
@@ -957,12 +1002,18 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
     constants are one 16-byte aligned block of the blob, copied whole into
     a weight buffer: an ST-GCNN layer's K (`k_fragments`), W and Wr (C_out,
     C_in) as float32 tiles, bias and slope; a joint re-scaling's dense
-    (T*V_out, T*V_in) operator as K, and its per-row affine.  A layer whose constants would not fit
-    a buffer (two buffers beside TC32_ROWS row areas and the embeddings)
-    becomes 2 or 4 records over parts of its C_out, each with its own copy
-    of K.  Every layer's W_e (C_out, E), stacked and transposed to (E, sum
-    of C_out), then its b_e, form the blob's last block, which the kernel
-    reads through __ldg."""
+    (T*V_out, T*V_in) operator as K, and its per-row affine.  A layer whose
+    constants would not fit a buffer (two buffers beside the row areas and
+    the embeddings) becomes several records: over parts of its C_out (each
+    with its own copy of K and its graph mix recomputed), and over runs of
+    its 16-position output tiles (each with only those tiles' rows of K:
+    position p0 on), whichever split fits at the least modelled cost
+    (`tc32_split`), fewest records on a tie.  Every layer's W_e (C_out,
+    E), stacked and transposed to (E, sum of C_out), then its b_e, form the
+    blob's last block, which the kernel reads through __ldg."""
+    if rows is None:
+        return most_rows(lambda r: pack_for_tc_f32_kernel(folded, warps, r),
+                         TC32_ROW_COUNTS)
     seq = layer_sequence(folded)
     e_dim, cin = folded.embedding_dim, folded.c_in
     if e_dim > TC32_MAX_E:
@@ -999,12 +1050,12 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
 
     row_bytes = total + work
     emb_stride = sum(pad8(w.w2.shape[0]) for w in folded.gcn)
-    emb_bytes = TC32_ROWS * emb_stride * 4
+    emb_bytes = rows * emb_stride * 4
     # the next tile's x and silu_emb, as cp.async brings them
-    pbuf_bytes = -(-TC32_ROWS * (cin * seq[0][2] + e_dim) * 4 // 16) * 16
+    pbuf_bytes = -(-rows * (cin * seq[0][2] + e_dim) * 4 // 16) * 16
     # the kernel also holds the table and its mbarriers in static shared
     # memory
-    wcap = (MAX_SMEM_BYTES - TC32_STATIC_SMEM - TC32_ROWS * row_bytes
+    wcap = (MAX_SMEM_BYTES - TC32_STATIC_SMEM - rows * row_bytes
             - emb_bytes - pbuf_bytes) // 2 // 16 * 16
 
     ops, blocks = [], []
@@ -1012,60 +1063,84 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
     for k, ((kind, i, tvi, tvo), (src, out, s_in, s_out)) in enumerate(
             zip(seq, sides)):
         ci, co = chans[k], chans[k + 1]
-        rec = dict(kind=kind, tvi=tvi, tvo=tvo, mt=pad16(tvo) // 16,
-                   ks=pad8(tvi) // 8, ci=pad16(ci), res=0, c0=0,
-                   w=-1, w_stride=0, wr=-1, bias=-1, slope=-1, rs=-1, rt=-1,
-                   emb=-1, skip=off[skip[k]] if k in skip else -1,
+        mt, ks = pad16(tvo) // 16, pad8(tvi) // 8
+        rec = dict(kind=kind, tvi=tvi, tvo=tvo, ks=ks, ci=pad16(ci), res=0,
+                   c0=0, w=-1, w_stride=0, wr=-1, bias=-1, slope=-1, rs=-1,
+                   rt=-1, emb=-1, skip=off[skip[k]] if k in skip else -1,
                    skip_stride=tc32_stride(co) if k in skip else 0,
                    **{'in': at(src, s_in), 'in_stride': tc32_stride(ci),
                       'out': at(out, s_out), 'out_stride': tc32_stride(co)})
+        name = GCN_LAYERS[i] if kind == 0 else JOINT_LAYERS[i]
         if kind == 1:
             j = folded.joint[i]
-            b = _Blob()
-            rec.update(nt=pad16(ci) // 8, nsplit=1,
-                       k=b.add(k_fragments(j.d2, rec['mt'], rec['ks'])),
-                       rs=b.vec(j.rs, pad16(tvo)), rt=b.vec(j.rt, pad16(tvo)))
-            ops.append(rec)
-            blocks.append(b)
+            kfrag = k_fragments(j.d2, mt, ks)
+            affine = 2 * pad16(tvo) * 4
+            mparts = next((m for m in range(1, mt + 1) if -(-mt // m) * ks
+                           * 1024 + affine <= wcap), None)
+            if mparts is None:
+                raise SharedMemoryError(
+                    f'the float32 tensor-core denoiser cannot fit layer '
+                    f'{name}\'s constants in {wcap} bytes')
+            for m0, m in tile_parts(mt, mparts):
+                b = _Blob()
+                ops.append(dict(rec, nt=pad16(ci) // 8, nsplit=1, mt=m,
+                                p0=16 * m0, k=b.add(kfrag[m0:m0 + m]),
+                                rs=b.vec(j.rs, pad16(tvo)),
+                                rt=b.vec(j.rt, pad16(tvo))))
+                blocks.append(b)
             continue
         w = folded.gcn[i]
         res = w.wr2 is not None
         nt = pad8(co) // 8
-        parts = 1
-        while tc32_parts_bytes(rec['mt'], rec['ks'], ci, nt // parts,
-                               res) > wcap:
-            parts *= 2
-            if nt % parts:
-                raise ValueError(f'the float32 tensor-core denoiser cannot '
-                                 f'fit layer {GCN_LAYERS[i]}\'s constants '
-                                 f'in {wcap} bytes')
-        ntp = nt // parts
-        kfrag = k_fragments(w.k2, rec['mt'], rec['ks'])
+        chunks = pad16(ci) // 16
+        best = None
+        for cparts in (1, 2, 4, 8, 16):
+            if cparts > nt or nt % cparts:
+                continue
+            for mparts in range(1, mt + 1):
+                runs = tile_parts(mt, mparts)
+                if tc32_parts_bytes(runs[0][1], ks, ci, nt // cparts,
+                                    res) > wcap:
+                    continue
+                cost = cparts * sum(
+                    tc32_split(rows * m, chunks, ks, nt // cparts, res,
+                               warps)[0] for _, m in runs)
+                key = (cost, cparts * mparts)
+                if best is None or key < best[0]:
+                    best = (key, cparts, runs)
+        if best is None:
+            raise SharedMemoryError(
+                f'the float32 tensor-core denoiser cannot fit layer {name}\'s '
+                f'constants in {wcap} bytes')
+        _, cparts, runs = best
+        ntp = nt // cparts
+        kfrag = k_fragments(w.k2, mt, ks)
         col = sum(a.shape[0] for a in emb_w)
-        for p in range(parts):
-            b = _Blob()
-            rows = slice(8 * ntp * p, 8 * ntp * (p + 1))
+        for p in range(cparts):
+            rows_c = slice(8 * ntp * p, 8 * ntp * (p + 1))
+            for m0, m in runs:
+                b = _Blob()
 
-            def tile(m):
-                t = np.zeros((8 * nt, tc32_stride(ci)), np.float32)
-                mat = m.detach().cpu().float().numpy()
-                t[:mat.shape[0], :mat.shape[1]] = mat
-                return b.add(t[rows])
+                def tile(mat):
+                    t = np.zeros((8 * nt, tc32_stride(ci)), np.float32)
+                    a = mat.detach().cpu().float().numpy()
+                    t[:a.shape[0], :a.shape[1]] = a
+                    return b.add(t[rows_c])
 
-            bias = np.zeros(8 * nt, np.float32)
-            bias[:co] = w.bias.detach().cpu().float().numpy()
-            r = dict(rec, nt=ntp, res=int(res), c0=8 * ntp * p,
-                     emb=col + 8 * ntp * p, k=b.add(kfrag), w=tile(w.w2),
-                     w_stride=tc32_stride(ci))
-            if res:
-                r['wr'] = tile(w.wr2)
-            r.update(bias=b.add(bias[rows]),
-                     slope=b.add(np.float32([w.slope])),
-                     nsplit=tc32_nsplit(TC32_ROWS * rec['mt'],
-                                        pad16(ci) // 16, rec['ks'], ntp,
-                                        res, warps))
-            ops.append(r)
-            blocks.append(b)
+                bias = np.zeros(8 * nt, np.float32)
+                bias[:co] = w.bias.detach().cpu().float().numpy()
+                r = dict(rec, nt=ntp, mt=m, p0=16 * m0, res=int(res),
+                         c0=8 * ntp * p, emb=col + 8 * ntp * p,
+                         k=b.add(kfrag[m0:m0 + m]), w=tile(w.w2),
+                         w_stride=tc32_stride(ci))
+                if res:
+                    r['wr'] = tile(w.wr2)
+                r.update(bias=b.add(bias[rows_c]),
+                         slope=b.add(np.float32([w.slope])),
+                         nsplit=tc32_nsplit(rows * m, chunks, ks, ntp, res,
+                                            warps))
+                ops.append(r)
+                blocks.append(b)
         we = np.zeros((8 * nt, e_dim), np.float32)
         we[:co] = w.we2.detach().cpu().float().numpy()
         eb = np.zeros(8 * nt, np.float32)
@@ -1084,7 +1159,7 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
     emb_off = 2 * wbuf
     pbuf_off = emb_off + emb_bytes
     row0 = pbuf_off + pbuf_bytes
-    smem_bytes = row0 + TC32_ROWS * row_bytes
+    smem_bytes = row0 + rows * row_bytes
     check_smem('float32 tensor-core denoiser',
                smem_bytes + TC32_STATIC_SMEM)
     header = dict(nops=len(ops), e=e_dim, cin=cin, tva=seq[0][2],
@@ -1102,7 +1177,7 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser,
     blob = np.concatenate([p for b in blocks + [embw] for p in b.parts])
     return TcPlan(blob=torch.from_numpy(blob),
                   table=torch.tensor(table, dtype=torch.int32),
-                  smem_bytes=smem_bytes)
+                  smem_bytes=smem_bytes, rows=rows)
 
 
 def tc32_plan(folded: FoldedDenoiser, device: torch.device,
@@ -1199,6 +1274,12 @@ def bind(lib, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def row_mask(counts: Sequence[int]) -> int:
+    """The rows per tile a kernel library is built for, as the bit mask
+    its `<prefix>_row_counts()` reports."""
+    return sum(1 << r for r in counts)
+
+
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -1266,10 +1347,10 @@ class TensorCoreDenoiserKernel:
         self._fn = None
 
     def constants(self) -> Dict[str, int]:
-        """What the library must report: the plan the host packs for."""
-        return {'rows_per_block': TC_ROWS, 'warps_per_block': TC_WARPS,
-                'max_table': TC_MAX_TABLE, 'header_len': len(TC_HEADER),
-                'op_len': len(TC_OP)}
+        """What the library must report: the plans the host packs for."""
+        return {'row_counts': row_mask(TC_ROW_COUNTS),
+                'warps_per_block': TC_WARPS, 'max_table': TC_MAX_TABLE,
+                'header_len': len(TC_HEADER), 'op_len': len(TC_OP)}
 
     def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
         return tc_plan(folded, device)
@@ -1278,7 +1359,7 @@ class TensorCoreDenoiserKernel:
         """Build (at first use) and bind the C entry point."""
         if self._fn is None:
             lib = load_library(self.source, self.prefix, self.constants())
-            self._fn = bind(lib, self.symbol, 5, 2)
+            self._fn = bind(lib, self.symbol, 5, 3)
         return self._fn
 
     def __call__(self, x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
@@ -1293,7 +1374,7 @@ class TensorCoreDenoiserKernel:
         with torch.cuda.device(x_ctn.device):
             err = fn(x_ctn.data_ptr(), silu_emb_en.data_ptr(),
                      plan.blob.data_ptr(), plan.table.data_ptr(),
-                     out.data_ptr(), n, plan.smem_bytes,
+                     out.data_ptr(), n, plan.rows, plan.smem_bytes,
                      current_stream(x_ctn.device))
         if err != 0:
             raise RuntimeError(f'{self.source} kernel launch failed: CUDA '
@@ -1313,9 +1394,9 @@ class TensorCoreF32DenoiserKernel(TensorCoreDenoiserKernel):
     dtype = torch.float32
 
     def constants(self) -> Dict[str, int]:
-        return {'rows_per_block': TC32_ROWS, 'warps_per_block': TC32_WARPS,
-                'max_table': TC32_MAX_TABLE, 'header_len': len(TC32_HEADER),
-                'op_len': len(TC32_OP)}
+        return {'row_counts': row_mask(TC32_ROW_COUNTS),
+                'warps_per_block': TC32_WARPS, 'max_table': TC32_MAX_TABLE,
+                'header_len': len(TC32_HEADER), 'op_len': len(TC32_OP)}
 
     def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
         return tc32_plan(folded, device)

@@ -73,10 +73,10 @@ def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
          f'{run}\n'
          '      if (tid == 0) atomicAdd(&g_prof[2 * op + 1], '
          '(unsigned long long)(clock64() - t1));'),
-        ('    __syncthreads();\n    store_tile(tid, sm, t, eps, n, n0);',
+        ('    __syncthreads();\n    store_tile<kRows>(tid, sm, t, eps, n, n0);',
          '    long long ts = clock64();\n'
          '    __syncthreads();\n'
-         '    store_tile(tid, sm, t, eps, n, n0);\n'
+         '    store_tile<kRows>(tid, sm, t, eps, n, n0);\n'
          '    if (tid == 0) atomicAdd(&g_prof[41], (unsigned long long)'
          '(clock64() - ts));'),
         (units, '  long long ta = clock64();\n' + units),
@@ -96,7 +96,7 @@ def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
 # per source: (file, namespace, patches)
 SOURCES = {
     'bf16': ('denoiser_tc.cu', 'mocodad_tc', _patches(
-        'mocodad_tc', '    load_tile(tid, sm, t, x, semb, n, n0);',
+        'mocodad_tc', '    load_tile<kRows>(tid, sm, t, x, semb, n, n0);',
         '    embed_all<kRows>(tid, sm, t, kRows);',
         '      cp_async_wait_all();\n'
         '      __syncthreads();   // this op\'s constants and the last op\'s '
@@ -110,13 +110,14 @@ SOURCES = {
         'mocodad_tc32',
         '    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n'
         '    __syncthreads();     // this tile\'s x and silu_emb have arrived\n'
-        '    load_tile(tid, sm, t, n, n0);',
-        '    embed_all(tid, sm, t, blob);',
+        '    load_tile<kRows>(tid, sm, t, n, n0);',
+        '    embed_all<kRows>(tid, sm, t, blob);',
         '      mbar_wait(buf ? bar[1] : bar[0], parity >> buf & 1);\n'
         '      parity ^= 1u << buf;\n'
         '      __syncthreads();   // this op\'s constants and the last op\'s '
         'output',
-        '      run_op(tid, sm, t, ops + op * O_LEN, sm + (buf ? wb1 : wb0));',
+        '      run_op<kRows>(tid, sm, t, ops + op * O_LEN, '
+        'sm + (buf ? wb1 : wb0));',
         '  for (int u = warp; u < kRows * mt * ns; u += kWarps) {',
         '                    : make_float2(0.f, 0.f);\n      }\n    }\n')),
 }
@@ -183,12 +184,12 @@ def _setup(which: str, n: int, seed: int, warps: int = P.TC32_WARPS):
 
 
 def _caller(lib, kernel, x, semb, plan, n):
-    launch = P.bind(lib, kernel.symbol, 5, 2)
+    launch = P.bind(lib, kernel.symbol, 5, 3)
     out = torch.empty_like(x)
 
     def call():
         err = launch(x.data_ptr(), semb.data_ptr(), plan.blob.data_ptr(),
-                     plan.table.data_ptr(), out.data_ptr(), n,
+                     plan.table.data_ptr(), out.data_ptr(), n, plan.rows,
                      plan.smem_bytes, P.current_stream(x.device))
         if err:
             raise RuntimeError(f'probe launch failed: {err}')
@@ -211,7 +212,7 @@ def probe(n: int = N_ROWS, seed: int = 0, which: str = 'bf16') -> dict:
     torch.cuda.synchronize()
     if read(counts):
         raise RuntimeError('reading the counters failed')
-    rows = P.TC_ROWS if which == 'bf16' else P.TC32_ROWS
+    rows = plan.rows
     tiles = -(-n // rows)
     c = np.array(counts[:], np.float64) / tiles
     _, ops = _records(plan, which)
@@ -270,7 +271,7 @@ def _op_names(folded, ops, which):
 CHUNK_DISPATCH = '  if (tab(d, O_CI) % 32 == 0)\n'
 CHUNK_SOURCES = {16: '  if (false)\n', 32: CHUNK_DISPATCH,
                  64: '  if (tab(d, O_CI) % 64 == 0)\n'
-                     '    gcn_units<8>(sm, t, d, wb, warp, lane);\n'
+                     '    gcn_units<8, kRows>(sm, t, d, wb, warp, lane);\n'
                      '  else if (tab(d, O_CI) % 32 == 0)\n'}
 # the joint re-scalings on the FMA units over their T diagonal (V_out x
 # V_in) blocks, in place of the kernel's dense 3xTF32 graph mix; the plan
@@ -283,6 +284,7 @@ JOINT_FMA = r"""constexpr int kJW = 4;           // output joints per thread
 // (V_out x V_in) blocks, then h * rs + rt and, with a skip, + skip; 0 past
 // T*V.  A thread takes (row, frame t, kJW output joints, 4 channels): each
 // 16-byte load of f serves kJW outputs, D's entries are broadcasts.
+template <int kRows>
 __device__ __forceinline__ void joint_op(int tid, char* sm, const int* t,
                                          const int* d, const char* wb) {
   const int row0 = tab(t, H_ROW0), rb = tab(t, H_ROW_BYTES);
@@ -411,7 +413,7 @@ def joint_fma_plan(plan: P.TcPlan, folded) -> P.TcPlan:
         size += b.size
     return P.TcPlan(blob=torch.from_numpy(np.concatenate(parts)).to(dev),
                     table=torch.from_numpy(table).to(dev),
-                    smem_bytes=plan.smem_bytes)
+                    smem_bytes=plan.smem_bytes, rows=plan.rows)
 
 
 def compare_variants(variants=VARIANTS, n: int = N_ROWS, seed: int = 0,

@@ -39,7 +39,7 @@ from mocodad_tpu_torch.tools.perf.probe_tc_phases import inline_headers
 KERNELS = {
     'b1_bf16': ('denoiser_tc.cu', '      run_op<false>(',
                 P.TensorCoreDenoiserKernel, 'mocodad_denoiser_tc_launch', 5,
-                2),
+                3),
     'b3_bf16': ('denoiser_tc_dma.cu', '      run_op<false>(',
                 D.TensorCoreDmaKernel, 'mocodad_dma_tc_launch', 5, 3),
     'b2': ('denoiser_tc_grouped.cu', '      run_op<true>(',

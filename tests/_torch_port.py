@@ -290,7 +290,7 @@ def tc_ops(sm, h, ops, blob, rows_at, round_g):
 
 
 def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
-    """csrc/denoiser_tc.cu (B1 bfloat16) on one tile of P.TC_ROWS fold rows
+    """csrc/denoiser_tc.cu (B1 bfloat16) on one tile of plan.rows fold rows
     from row n0 of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as
     bytes that start as NaN (0xff), the constants copied from the blob,
     x and silu_emb rounded to bf16, the ops as `tc_op`.  Returns eps
@@ -299,7 +299,7 @@ def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
     h, ops = table_records(plan.table, P.TC_HEADER)
     blob = plan.blob.numpy()
     sm = np.full(smem_bytes or plan.smem_bytes, 0xff, np.uint8)
-    rows, n = P.TC_ROWS, x.shape[2]
+    rows, n = plan.rows, x.shape[2]
     nv = max(0, min(rows, n - n0))
     rows_at = [h['row0'] + r * h['row_bytes'] for r in range(rows)]
     cin, tva, e = h['cin'], h['tva'], h['e']
@@ -328,4 +328,4 @@ def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
 def emulate_tc_all(plan, x, semb, **kw):
     n = x.shape[2]
     return np.concatenate([emulate_tc(plan, x, semb, n0, **kw)
-                           for n0 in range(0, n, P.TC_ROWS)], axis=2)
+                           for n0 in range(0, n, plan.rows)], axis=2)

@@ -121,26 +121,26 @@ def test_hi_lo_split_reproduces_the_f32_channel_mix(weights, layer):
     assert np.abs(hi @ wt - want).max() > HILO_REL * scale
 
 
-def test_tc_plan_fits_and_buffers_are_disjoint(weights):
-    _, _, plan = weights
+def assert_tc_plan_fits(plan):
+    """The plan inside a block's shared memory beside the table, its
+    regions apart and aligned; per op, its input, output and skip inside
+    the row and apart."""
     h, ops = _records(plan)
-    # the flagship: 224,160 of the 232,448 bytes a Hopper block may use
-    assert plan.smem_bytes == 224160 <= P.MAX_SMEM_BYTES
+    assert plan.smem_bytes + 4 * P.TC_MAX_TABLE <= P.MAX_SMEM_BYTES
     wsize = h['wbuf1'] - h['wbuf0']
     assert max(o['blob_bytes'] for o in ops) <= wsize
     spans = [(h['wbuf0'], h['wbuf0'] + wsize),
              (h['wbuf1'], h['wbuf1'] + wsize),
              (h['embw_off'], h['embw_off'] + h['embw_bytes']),
-             (h['emb_off'], h['emb_off'] + P.TC_ROWS * h['emb_stride'] * 4)]
+             (h['emb_off'], h['emb_off'] + plan.rows * h['emb_stride'] * 4)]
     spans += [(h['row0'] + r * h['row_bytes'],
                h['row0'] + (r + 1) * h['row_bytes'])
-              for r in range(P.TC_ROWS)]
+              for r in range(plan.rows)]
     spans.sort()
     assert spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
     for a, b in zip(spans, spans[1:]):
         assert a[1] <= b[0], 'overlapping regions'
     assert all(s % 16 == 0 for span in spans for s in span)
-    # per op: input, output and skip inside the row and apart
     for o in ops:
         bufs = [(o['in'], 16 * o['ks'] * o['in_stride'] * 2),
                 (o['out'], 16 * o['mt'] * o['out_stride'] * 2)]
@@ -152,6 +152,14 @@ def test_tc_plan_fits_and_buffers_are_disjoint(weights):
         bufs.sort()
         for a, b in zip(bufs, bufs[1:]):
             assert a[0] + a[1] <= b[0], 'overlapping activations'
+
+
+def test_tc_plan_fits_and_buffers_are_disjoint(weights):
+    _, _, plan = weights
+    # the flagship: 224,160 of the 232,448 bytes a Hopper block may use,
+    # 4 rows per tile
+    assert plan.smem_bytes == 224160 and plan.rows == 4
+    assert_tc_plan_fits(plan)
 
 
 def test_tc_table_format_matches_the_source():
@@ -170,7 +178,11 @@ def test_tc_table_format_matches_the_source():
     assert enum('H_NOPS') == ['H_' + k.upper() for k in P.TC_HEADER] + \
         ['H_LEN']
     assert enum('O_KIND') == ['O_' + k.upper() for k in P.TC_OP] + ['O_LEN']
-    assert re.search(r'kRows = (\d+);', src).group(1) == str(P.TC_ROWS)
+    # one launch case per build of rows per tile, and the mask it reports
+    cases = re.findall(r'case (\d+):\s*return launch<\1>', src)
+    assert sorted(map(int, cases)) == sorted(P.TC_ROW_COUNTS)
+    assert re.search(r'row_counts\(\) \{\s*return ([^;]+);', src).group(1) \
+        == ' | '.join(f'(1 << {r})' for r in P.TC_ROW_COUNTS)
 
 
 def test_bf16_cpu_tensor_goes_to_the_plain_version(weights):

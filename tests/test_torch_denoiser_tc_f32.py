@@ -102,7 +102,7 @@ def unfragment(frags):
 
 
 def emulate(plan, x, semb, n0=0):
-    """csrc/denoiser_tc_f32.cu on one tile of P.TC32_ROWS fold rows from
+    """csrc/denoiser_tc_f32.cu on one tile of plan.rows fold rows from
     row n0 of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as
     bytes that start as NaN (0xff), each op record's constants copied from
     the blob into its weight buffer, every layer's embedding from the
@@ -111,11 +111,13 @@ def emulate(plan, x, semb, n0=0):
     kernel reads), every product as 3xTF32 (K's and the dense joint
     operators' hi and lo as the host split them, f, g, W and Wr split as
     the kernel splits them, g's channel pairs as the permuted A fragments
-    give them).  Returns eps (C_in, T*V, rows) for the rows below N."""
+    give them; a record covers its 16 mt output positions from p0, with
+    those rows of K).  Returns eps (C_in, T*V, rows) for the rows below
+    N."""
     h, ops = _records(plan)
     blob = plan.blob.numpy()
     sm = np.full(plan.smem_bytes, 0xff, np.uint8)
-    rows, n = P.TC32_ROWS, x.shape[2]
+    rows, n = plan.rows, x.shape[2]
     nv = max(0, min(rows, n - n0))
 
     def f32(off, size):
@@ -143,23 +145,25 @@ def emulate(plan, x, semb, n0=0):
         wb = h['wbuf0'] if k % 2 == 0 else h['wbuf1']
         sm[wb:wb + o['blob_bytes']] = \
             blob[o['blob']:o['blob'] + o['blob_bytes']]
-        tvop = 16 * o['mt']
+        tvop, p0 = 16 * o['mt'], o['p0']
+        pos = slice(p0, p0 + tvop)          # the record's output positions
         khi, klo = unfragment(f32(wb + o['k'], o['mt'] * o['ks'] * 256)
                               .reshape(o['mt'], o['ks'], 2, 32, 4))
         khi, klo = khi.astype(np.float64), mma_operand(klo)
         if o['kind'] == 1:
             c = o['ci']
-            rs = f32(wb + o['rs'], tvop)[:, None]
-            rt = f32(wb + o['rt'], tvop)[:, None]
+            rs = f32(wb + o['rs'], p0 + tvop)[pos, None]
+            rt = f32(wb + o['rt'], p0 + tvop)[pos, None]
             for r in range(rows):
                 f = tile(row(r) + o['in'], 8 * o['ks'], o['in_stride'])
                 fh, fl = split(f[:, :c])
                 y = mma3(khi, klo, fh, fl) * rs + rt
                 if o['skip'] >= 0:
-                    y = y + tile(row(r) + o['skip'], tvop,
-                                 o['skip_stride'])[:, :c]
-                y[o['tvo']:] = 0
-                tile(row(r) + o['out'], tvop, o['out_stride'])[:, :c] = y
+                    y = y + tile(row(r) + o['skip'], p0 + tvop,
+                                 o['skip_stride'])[pos, :c]
+                y[max(0, o['tvo'] - p0):] = 0
+                tile(row(r) + o['out'], p0 + tvop,
+                     o['out_stride'])[pos, :c] = y
             continue
         ci, cop, oc = o['ci'], 8 * o['nt'], o['c0']
         wh, wl = split(tile(wb + o['w'], cop, o['w_stride'])[:, :ci].T)
@@ -168,23 +172,23 @@ def emulate(plan, x, semb, n0=0):
         bias = f32(wb + o['bias'], cop)
         slope = f32(wb + o['slope'], 1)[0]
         for r in range(rows):
-            f = tile(row(r) + o['in'], max(8 * o['ks'], tvop),
+            f = tile(row(r) + o['in'], max(8 * o['ks'], p0 + tvop),
                      o['in_stride'])
             fh, fl = split(f[:8 * o['ks'], :ci])
             g = mma3(khi, klo, fh, fl)                   # (16 mt, ci)
             gh, gl = split(g)
             y = mma3(gh, gl, wh, wl).astype(np.float64)
             if o['res']:
-                ah, al = split(f[:tvop, :ci])
+                ah, al = split(f[pos, :ci])
                 y = y + mma3(ah, al, wrh, wrl)
             else:
-                y = y + f[:tvop, oc:oc + cop]
+                y = y + f[pos, oc:oc + cop]
             y = (y + bias).astype(np.float32)
             y = np.where(y >= 0, y, slope * y) + \
                 f32(h['emb_off'] + (r * es + o['emb']) * 4, cop)
-            y[o['tvo']:] = 0
-            tile(row(r) + o['out'], tvop,
-                 o['out_stride'])[:, oc:oc + cop] = y
+            y[max(0, o['tvo'] - p0):] = 0
+            tile(row(r) + o['out'], p0 + tvop,
+                 o['out_stride'])[pos, oc:oc + cop] = y
     eps = np.zeros((cin, tva, nv), np.float32)
     for r in range(nv):
         out = tile(row(r) + h['out_off'], h['tvap'], h['out_stride'])
@@ -196,7 +200,7 @@ def emulate(plan, x, semb, n0=0):
 def emulate_all(plan, x, semb):
     n = x.shape[2]
     return np.concatenate([emulate(plan, x, semb, n0)
-                           for n0 in range(0, n, P.TC32_ROWS)], axis=2)
+                           for n0 in range(0, n, plan.rows)], axis=2)
 
 
 @pytest.mark.parametrize('n', [8, 7], ids=['aligned', 'ragged'])
@@ -315,38 +319,38 @@ def test_tc32_blob_holds_the_f32_constants(weights):
         assert bool(o['res']) == (w.wr2 is not None)
 
 
-def test_tc32_plan_fits_and_buffers_are_disjoint(weights):
-    _, _, plan = weights
+def assert_tc32_plan_fits(plan):
+    """The plan inside a block's shared memory, its regions apart and
+    aligned; per record, its input, output and skip inside the row and
+    apart, strides 8 or 24 mod 32 words (conflict-free fragment loads);
+    a record's constants inside a weight buffer."""
     h, ops = _records(plan)
-    # the flagship: 211,728 bytes, plus 3,088 of static shared memory for
-    # the table and two mbarriers, of the 232,448 a Hopper block may use;
-    # d3_0 and d3_1 each staged as two halves of C_out
-    assert plan.smem_bytes == 211728
+    rows = plan.rows
     assert plan.smem_bytes + P.TC32_STATIC_SMEM <= P.MAX_SMEM_BYTES
-    assert len(ops) == 17 and [o['c0'] for o in ops[7:11]] == [0, 64, 0, 32]
+    assert len(plan.table) <= P.TC32_MAX_TABLE
     wsize = h['wbuf1'] - h['wbuf0']
     assert max(o['blob_bytes'] for o in ops) <= wsize
     spans = [(h['wbuf0'], h['wbuf0'] + wsize),
              (h['wbuf1'], h['wbuf1'] + wsize),
-             (h['emb_off'], h['emb_off'] + P.TC32_ROWS * h['emb_stride'] * 4),
-             (h['pbuf_off'], h['pbuf_off'] + -(-P.TC32_ROWS * (
+             (h['emb_off'], h['emb_off'] + rows * h['emb_stride'] * 4),
+             (h['pbuf_off'], h['pbuf_off'] + -(-rows * (
                  h['cin'] * h['tva'] + h['e']) * 4 // 16) * 16)]
     spans += [(h['row0'] + r * h['row_bytes'],
                h['row0'] + (r + 1) * h['row_bytes'])
-              for r in range(P.TC32_ROWS)]
+              for r in range(rows)]
     spans.sort()
     assert spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
     for a, b in zip(spans, spans[1:]):
         assert a[1] <= b[0], 'overlapping regions'
     assert all(s % 16 == 0 for span in spans for s in span)
-    # per record: input, output and skip inside the row and apart; strides
-    # 8 or 24 mod 32 words (conflict-free fragment loads)
     for o in ops:
         rows_in = max(16 * -(-o['tvi'] // 16), 8 * o['ks'])
+        rows_out = 16 * -(-o['tvo'] // 16)
+        assert o['p0'] % 16 == 0 and o['p0'] + 16 * o['mt'] <= rows_out
         bufs = [(o['in'], rows_in * o['in_stride'] * 4),
-                (o['out'], 16 * o['mt'] * o['out_stride'] * 4)]
+                (o['out'], rows_out * o['out_stride'] * 4)]
         if o['skip'] >= 0:
-            bufs.append((o['skip'], 16 * o['mt'] * o['skip_stride'] * 4))
+            bufs.append((o['skip'], rows_out * o['skip_stride'] * 4))
         for off, size in bufs:
             assert 0 <= off and off + size <= h['row_bytes']
             assert off % 16 == 0
@@ -356,6 +360,19 @@ def test_tc32_plan_fits_and_buffers_are_disjoint(weights):
         assert o['in_stride'] % 32 in (8, 24)
         assert o['out_stride'] % 32 in (8, 24)
         assert o['kind'] == 1 or o['w_stride'] % 32 in (8, 24)
+
+
+def test_tc32_plan_fits_and_buffers_are_disjoint(weights):
+    _, _, plan = weights
+    _, ops = _records(plan)
+    # the flagship: 211,728 bytes, plus 4,112 of static shared memory for
+    # the table and two mbarriers, of the 232,448 a Hopper block may use;
+    # 2 rows per tile; d3_0 and d3_1 each staged as two halves of C_out,
+    # no record split over positions
+    assert plan.smem_bytes == 211728 and plan.rows == 2
+    assert len(ops) == 17 and [o['c0'] for o in ops[7:11]] == [0, 64, 0, 32]
+    assert all(o['p0'] == 0 for o in ops)
+    assert_tc32_plan_fits(plan)
 
 
 def test_tc32_nsplit_keeps_every_warp_busy_where_it_pays():
@@ -388,7 +405,11 @@ def test_tc32_table_format_matches_the_source():
         ['H_LEN']
     assert enum('O_KIND') == ['O_' + k.upper() for k in P.TC32_OP] + \
         ['O_LEN']
-    assert re.search(r'kRows = (\d+);', src).group(1) == str(P.TC32_ROWS)
+    # one launch case per build of rows per tile, and the mask it reports
+    cases = re.findall(r'case (\d+):\s*return launch_rows<\1>', src)
+    assert sorted(map(int, cases)) == sorted(P.TC32_ROW_COUNTS)
+    assert re.search(r'row_counts\(\) \{\s*return ([^;]+);', src).group(1) \
+        == ' | '.join(f'(1 << {r})' for r in P.TC32_ROW_COUNTS)
     assert re.search(r'#define TC32_WARPS (\d+)', src).group(1) == \
         str(P.TC32_WARPS)
     assert re.search(r'kMaxTable = (\d+);', src).group(1) == \

@@ -324,3 +324,51 @@ def test_generate_bf16_runs_through_the_bf16_kernel(folded):
     assert sel.dtype == loss.dtype == torch.float32
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()
+
+
+# B1 at the frame counts of the other strategies: T = 4 (inject with two
+# conditioning frames of six) and T = 6 (concat and the others at seg_len
+# 6), both kernels, at fewer rows per tile than the flagship's
+FRAMES = {4: dict(conditioning_indices=[0, 1]),
+          6: dict(conditioning_strategy='concat')}
+
+
+def _model_at(t):
+    cfg = flagship_config(n_generated_samples=4, **FRAMES[t])
+    model = MoCoDADModel(cfg)
+    net = seeded_state(model.build_net(), seed=t).to('cuda').eval()
+    return model, net
+
+
+@pytest.mark.parametrize('n', [1031, 4096])
+@pytest.mark.parametrize('t', [4, 6])
+def test_both_kernels_at_more_frames(folded, t, n):
+    model, net = _model_at(t)
+    fold = model.fold(net)
+    g = torch.Generator(device='cuda').manual_seed(t + n)
+    x = torch.randn((2, 17 * t, n), generator=g, device='cuda')
+    semb = torch.nn.functional.silu(
+        torch.randn((16, n), generator=g, device='cuda'))
+    before = (P.DENOISER.launches, P.DENOISER_BF16.launches)
+    got = P.denoise(x, semb, fold)
+    got16 = P.denoise(x.bfloat16(), semb, fold)
+    assert (P.DENOISER.launches, P.DENOISER_BF16.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, P.denoise_reference(x, semb, fold),
+                               rtol=RTOL, atol=ATOL)
+    _bf16_close(got16, P.denoise_reference(x.bfloat16(), semb, fold,
+                                           compute_dtype=torch.bfloat16))
+    assert P.tc_plan(fold, x.device).rows == 2
+    assert P.tc32_plan(fold, x.device).rows == (2 if t == 4 else 1)
+
+
+def test_generate_concat_runs_through_the_kernel(folded):
+    model, net = _model_at(6)
+    data = torch.randn((8, 2, 6, 17), device='cuda',
+                       generator=torch.Generator('cuda').manual_seed(5))
+    before = P.DENOISER.launches
+    sel, loss = model.generate(net, data,
+                               torch.Generator('cuda').manual_seed(6))
+    assert P.DENOISER.launches == before + 9
+    assert sel.shape == (8, 2, 3, 17) and torch.isfinite(loss).all()

@@ -16,7 +16,9 @@ Phases, each printing one line:
                FMA design's fma_f32_ms) and the plain version's, beside the
                least time the card could take: 3xTF32 on the tensor cores
                (bound_ms) and the function on the FMA units
-               (fma_bound_ms);
+               (fma_bound_ms); then B1 at both dtypes at the serve path's
+               N = 12,800 (256 window-views x 50 samples), checked against
+               the plain version, timed and bounded;
   5. main      the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
                'best', 5 views, batch 1024, float32) from a seeded
                checkpoint on a synthetic dataset to the frame-level AUC,
@@ -85,7 +87,30 @@ Phases, each printing one line:
  22. train_concat, train_agree_random_imp `Trainer.fit` at concat, 2
                epochs, validation through B1 at T = 6; one random_imp
                train step on the card against the CPU, as 14.
-Then one JSON line with each kernel's numbers, the card line, and last
+ 23. serve, serve_bf16 the streaming scorer (mocodad_tpu_torch/serve.py)
+               at batch 256 on the synthetic test split pushed frame by
+               frame: window-views/s, the host seconds of the pushes, of
+               flush()'s launches, of the drain of the oldest batch and of
+               the rest, B1's launches (9 per flush, no other kernel), the
+               losses against a scorer through the plain version on the
+               same injected noise, and finalize_clip against the offline
+               post_processing of the same losses;
+ 24. serve_bound the test split pushed as fast as the host makes the
+               pushes, with auto-flush and at most 2 batches in flight: the
+               in-flight and queue bounds held on the card, and the per-push
+               p50 and p99
+               (tools/perf/probe_serve_latency.sustained_overload);
+ 25. checkpoint seeded weights -> a reference .ckpt -> the port's to-flax
+               -> msgpack; scorers restored from each give the same losses
+               bit for bit;
+ 26. serve_cli, predict_cli serve_MoCoDAD_torch.py and
+               predict_MoCoDAD_torch.py as subprocesses on a JSON config of
+               the main path, their output read back against the scorer in
+               this process and the main path's losses.
+Then the script's total seconds, one JSON line with each kernel's numbers
+(B1's entries also carry `serve_*` and `n12800_*` keys: the serve path's
+launches and window-views/s, and B1's numbers at N = 12,800), the card
+line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
 """
@@ -93,6 +118,7 @@ last line.  Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -106,15 +132,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mocodad_tpu_torch.config import flagship_config
+from mocodad_tpu_torch.config import flagship_config, load_config
 from mocodad_tpu_torch.data import build_dataset, synthetic
 from mocodad_tpu_torch.device import resolve_device
-from mocodad_tpu_torch.eval.harness import post_processing_from_config
+from mocodad_tpu_torch.eval.harness import (post_processing,
+                                            post_processing_from_config)
 from mocodad_tpu_torch.models import frames as F, mocodad as M
 from mocodad_tpu_torch.ops import build, dma_unet as D, grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
+from mocodad_tpu_torch.serve import StreamScorer
+from mocodad_tpu_torch.tools import convert_checkpoint
 from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
-                                          probe_grouped_pallas)
+                                          probe_grouped_pallas,
+                                          probe_serve_latency)
 from mocodad_tpu_torch.tools.perf.common import (N_ROWS as N_FOLD,
                                                  fold_inputs, rel_errors,
                                                  time_ms)
@@ -122,7 +152,8 @@ from mocodad_tpu_torch.data import apply_affine_batch, make_loader, to_device
 from mocodad_tpu_torch.training.inference import (restore_and_infer,
                                                   run_inference)
 from mocodad_tpu_torch.training.loop import SPANS, Trainer
-from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
+from mocodad_tpu_torch.utils.weights import (is_torch_checkpoint,
+                                             load_checkpoint_state_dict)
 
 N_RAGGED = 1031
 # float32 on both sides: the kernel sums each product in another order than
@@ -808,10 +839,317 @@ def strategies_phase(ds, card: str) -> None:
                                f'launches {counts}')
 
 
+# one serve flush: 256 window-views x 50 samples (the JAX scorer's default
+# batch, mocodad_tpu/serve.py:123)
+SERVE_BATCH = 256
+N_SERVE = SERVE_BATCH * 50
+# malformed protocol lines for the serve CLI, each skipped with a message
+SERVE_MALFORMED = ('not json', '[1, 2]', '{"type": "pose", "scene": 1}',
+                   '{"type": "end_clip", "clip": 1}')
+
+
+def time_serve_fold_phase(folded, g, peaks, card: str) -> dict:
+    """B1 at the serve path's N = 12,800 at both dtypes: max |diff| against
+    the plain version, ms, the plain version's ms and the bound; returns
+    {kernel: numbers}."""
+    _, bf16_peak, tf32_peak, bytes_peak = peaks
+    x, semb = fold_inputs(folded, N_SERVE, g)
+    flops = P.denoiser_flops_per_row(folded) * N_SERVE
+    out = {}
+    for key, kernel, xin, plan, work, peak, io in (
+            ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device), 3,
+             tf32_peak, 4 * (2 * x.numel() + semb.numel())),
+            ('denoiser_bf16', P.DENOISER_BF16, x.bfloat16(),
+             P.tc_plan(folded, x.device), 1, bf16_peak,
+             2 * 2 * x.numel() + 4 * semb.numel())):
+        want = P.denoise_reference(xin, semb, folded, compute_dtype=xin.dtype)
+        got = kernel(xin, semb, folded)
+        torch.cuda.synchronize()
+        if key == 'denoiser':
+            err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
+        else:
+            err, _, _, ok = bf16_check(got, want, BF16_MAX_REL,
+                                       BF16_MEAN_REL)
+        ms = time_ms(lambda: kernel(xin, semb, folded))
+        plain_ms = time_ms(lambda: P.denoise_reference(
+            xin, semb, folded, compute_dtype=xin.dtype))
+        b_ms, b_by = bound(work * flops, io + plan.blob.numel(), peak,
+                           bytes_peak)
+        phase('time', n=N_SERVE, kernel=key, max_abs_err=err, ok=ok,
+              kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=b_by,
+              bound_share=f'{b_ms / ms:.4f}', gflop=f'{flops / 1e9:.2f}',
+              kernel_tflops=f'{flops / ms / 1e9:.2f}', card=repr(card))
+        if not ok:
+            raise RuntimeError(f'{key} disagrees with its plain version at '
+                               f'N={N_SERVE}')
+        out[key] = dict(n12800_ms=ms, n12800_plain_ms=plain_ms,
+                        n12800_bound_ms=b_ms, n12800_bound_by=b_by,
+                        n12800_max_abs_err=err)
+    return out
+
+
+def push_all(scorer: StreamScorer, poses) -> None:
+    for scene, clip, person, frame, kp in poses:
+        scorer.push(scene, clip, person, frame, kp)
+
+
+def scored(scorer: StreamScorer):
+    """The scorer's window results over every clip, clips in key order:
+    (losses, views, meta, frames)."""
+    keys = sorted(scorer._scored)
+    r = [scorer._scored[k] for k in keys]
+    return (np.concatenate([x['loss'] for x in r]),
+            np.concatenate([x['trans'] for x in r]),
+            np.concatenate([np.stack(x['meta']) for x in r]),
+            np.concatenate([np.stack(x['frames']) for x in r]))
+
+
+def with_eval_dtype(cfg, eval_dtype: str, **kw):
+    return dataclasses.replace(cfg, extras=dict(cfg.extras,
+                                                eval_dtype=eval_dtype), **kw)
+
+
+def serve_phase(cfg, net, poses, eval_dtype: str, card: str) -> dict:
+    """Phase 23: the test split pushed frame by frame at batch 256
+    (flush_every None, so every batch launches at the final flush), timed:
+    the pushes, flush()'s launches, the drain of the oldest batch and the
+    rest; B1's launches (9 per flush, no other kernel); the losses against
+    a scorer through the plain version on the same injected noise, and
+    finalize_clip against the offline post_processing of the same losses.
+    Returns B1's launches and the window-views per second."""
+    f32 = eval_dtype == 'float32'
+    name, key = ('serve', 'denoiser') if f32 else ('serve_bf16',
+                                                   'denoiser_bf16')
+    scfg = with_eval_dtype(cfg, eval_dtype)
+    model = M.MoCoDADModel(scfg)
+    scorer = StreamScorer(scfg, net, batch_size=SERVE_BATCH,
+                          max_pending_batches=1 << 20, device='cuda')
+    # B1's plan for this fold, built once before the timed run
+    data = torch.zeros((SERVE_BATCH, scfg.num_coords, scfg.seg_len,
+                        scfg.n_joints), device='cuda')
+    scorer._step(data, torch.zeros(SERVE_BATCH, dtype=torch.long,
+                                   device='cuda'), -1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    push_all(scorer, poses)
+    views = scorer.pending
+    t1 = time.perf_counter()
+    scorer.flush(force=True)
+    t2 = time.perf_counter()
+    last = scorer._pending_dev[-1].done
+    busy = not last.query()
+    scorer._drain_one()
+    t3 = time.perf_counter()
+    last_done = last.query()
+    scorer._drain()
+    t4 = time.perf_counter()
+    counts = launch_counts()
+    batches = -(-views // SERVE_BATCH)
+    check_main_launches(counts, key, batches, f'serve {eval_dtype}')
+    # the oldest batch's drain waits on its own event: the card is busy
+    # when it starts, and the newest batch is still running when it returns
+    # (an idle card at the first drain would show nothing, so it fails too)
+    pipelined = busy and not last_done
+
+    noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
+                         model.n_frames_corrupt, model.n_joints)
+    s = model.n_generated_samples
+
+    def injected():
+        sc = StreamScorer(scfg, net, batch_size=SERVE_BATCH, device='cuda')
+        step = sc._step
+        sc._step = lambda d, tr, i: step(d, tr, i, noise_override=noise(
+            i, d.shape[0] * s))
+        push_all(sc, poses)
+        sc.flush(force=True)
+        sc._drain()
+        return sc
+    sk = injected()
+    with plain_denoiser():
+        sp = injected()
+    got, want = (torch.from_numpy(scored(x)[0]) for x in (sk, sp))
+    if f32:
+        err, ok = max_rel_excess(got, want, PATH_RTOL, PATH_ATOL)
+        extra = dict(rtol=PATH_RTOL, atol=PATH_ATOL)
+    else:
+        err, mx, mean, ok = bf16_check(got, want, PATH_BF16_MAX_REL,
+                                       PATH_BF16_MEAN_REL)
+        extra = dict(max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+                     bound_max_rel=PATH_BF16_MAX_REL,
+                     bound_mean_rel=PATH_BF16_MEAN_REL)
+    loss, trans, meta, frames = scored(sk)
+    _, offline, _ = post_processing(
+        loss, trans, meta, frames, gt_path=scfg.gt_path,
+        num_transform=scfg.num_transform, dataset_name=scfg.dataset_choice,
+        split='test', use_hr=False, pad_size=scfg.pad_size,
+        filter_kernel_size=scfg.filter_kernel_size,
+        frames_shift=scfg.frames_shift, return_scores=True)
+    streamed = []
+    for f in sorted(f for f in os.listdir(scfg.gt_path)
+                    if f.endswith('.npy')):
+        gt = np.load(os.path.join(scfg.gt_path, f))
+        streamed.append(sk.finalize_clip(
+            int(f.split('_')[0]), int(f.split('_')[1][:-4]), gt.shape[0],
+            gt=gt if scfg.pad_size != -1 else None))
+    fin_err = float(np.abs(np.concatenate(streamed) - offline).max())
+    seconds = t4 - t0
+    phase(name, window_views=views, windows=views // scfg.num_transform,
+          pushes=len(poses), batches=batches, launches=counts[key],
+          push_seconds=f'{t1 - t0:.4f}', launch_seconds=f'{t2 - t1:.4f}',
+          first_drain_seconds=f'{t3 - t2:.4f}',
+          drain_seconds=f'{t4 - t3:.4f}', seconds=f'{seconds:.4f}',
+          window_views_per_s=f'{views / seconds:.1f}',
+          busy_at_first_drain=busy, newest_done_after_first_drain=last_done,
+          card=repr(card))
+    phase(name, compared_window_views=len(got), max_abs_err=err, **extra,
+          finalize_vs_offline_max_abs=fin_err, pipelined=pipelined,
+          ok=ok and fin_err == 0.0 and pipelined)
+    if not (ok and fin_err == 0.0 and pipelined):
+        raise RuntimeError(f'{name}: kernel against plain {err}, finalize '
+                           f'against offline {fin_err}, pipelined '
+                           f'{pipelined}')
+    return dict(serve_launches=counts[key],
+                serve_window_views_per_s=views / seconds)
+
+
+def serve_bound_phase(cfg, net, poses, card: str) -> None:
+    """Phase 24: the test split pushed as fast as the host makes the
+    pushes, with auto-flush at every full batch and at most 2 batches in
+    flight (probe_serve_latency's overload run)."""
+    r = probe_serve_latency.sustained_overload(
+        with_eval_dtype(cfg, 'float32'), net, poses, batch=SERVE_BATCH)
+    phase('serve_bound', batch=SERVE_BATCH, max_pending_batches=2,
+          **{k: f'{v:.4f}' if isinstance(v, float) else v
+             for k, v in r.items()}, card=repr(card))
+    if not r['bounds_held']:
+        raise RuntimeError(f'serve bounds not held on the card: {r}')
+
+
+def checkpoint_phase(cfg, net, poses) -> None:
+    """Phase 25: seeded weights -> a reference .ckpt -> the port's to-flax
+    -> msgpack; a scorer restored from each gives the same losses, bit
+    for bit."""
+    ref = os.path.join(cfg.ckpt_dir, 'ref_weights.ckpt')
+    packed = os.path.join(cfg.ckpt_dir, 'flax_weights.msgpack')
+    torch.save({'state_dict': net.state_dict()}, ref)
+    n = convert_checkpoint.convert(cfg, 'to-flax', ref, packed)
+    losses = []
+    for path in (ref, packed):
+        sc = StreamScorer(with_eval_dtype(cfg, 'float32',
+                                          load_ckpt=os.path.basename(path)),
+                          None, batch_size=SERVE_BATCH, device='cuda')
+        push_all(sc, poses)
+        sc.flush(force=True)
+        sc._drain()
+        losses.append(scored(sc)[0])
+    err = float(np.abs(losses[0] - losses[1]).max())
+    ok = err == 0.0 and not is_torch_checkpoint(packed) and \
+        np.isfinite(losses[0]).all()
+    phase('checkpoint', tensors=n, msgpack_bytes=os.path.getsize(packed),
+          window_views=len(losses[0]), max_abs_err=err, ok=ok)
+    if not ok:
+        raise RuntimeError(f'a scorer restored from msgpack differs from '
+                           f'the .ckpt by {err}')
+
+
+def cli_config(cfg, work: str) -> str:
+    """The main path's configuration as a JSON config file whose ckpt_dir
+    holds its scaler and checkpoint; returns the file's path."""
+    root = os.path.join(work, 'cli')
+    ckpt_dir = os.path.join(root, cfg.dataset_choice, 'smoke')
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for f in ('local_robust.npz', cfg.load_ckpt):
+        shutil.copyfile(os.path.join(cfg.ckpt_dir, f),
+                        os.path.join(ckpt_dir, f))
+    d = with_eval_dtype(cfg, 'float32').to_dict()
+    d.update(exp_dir=root, dir_name='smoke', test_path=cfg.gt_path,
+             create_experiment_dir=False)
+    path = os.path.join(root, 'smoke.json')
+    with open(path, 'w') as f:
+        json.dump(d, f)
+    return path
+
+
+def run_cli(script: str, *args, stdin: str = ''):
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(repo, script),
+                           *args], input=stdin, capture_output=True,
+                          text=True, timeout=600, cwd=repo)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{script} exited {proc.returncode}: '
+                           f'{proc.stderr[-2000:]}')
+    return proc
+
+
+def serve_cli_phase(config: str, poses) -> None:
+    """Phase 26: serve_MoCoDAD_torch.py as a subprocess on one clip's
+    poses with malformed lines among them; its scores against a scorer
+    in this process on the same configuration and poses."""
+    cfg = load_config(config)
+    scene, clip = poses[0][:2]
+    clip_poses = [p for p in poses if p[:2] == (scene, clip)]
+    n_frames = np.load(os.path.join(cfg.gt_path,
+                                    f'{scene}_{clip}.npy')).shape[0]
+    lines = [json.dumps({'type': 'pose', 'scene': s, 'clip': c,
+                         'person': p, 'frame': f, 'keypoints': kp.tolist()})
+             for s, c, p, f, kp in clip_poses]
+    for i, bad in enumerate(SERVE_MALFORMED):
+        lines.insert(i * len(lines) // len(SERVE_MALFORMED), bad)
+    lines.append(json.dumps({'type': 'end_clip', 'scene': scene,
+                             'clip': clip, 'n_frames': n_frames}))
+    t0 = time.perf_counter()
+    proc = run_cli('serve_MoCoDAD_torch.py', '-c', config, '--batch-size',
+                   str(SERVE_BATCH), stdin='\n'.join(lines) + '\n')
+    seconds = time.perf_counter() - t0
+    out = [json.loads(x) for x in proc.stdout.splitlines()]
+    skipped = proc.stderr.count('skipping malformed')
+    sc = StreamScorer(cfg, batch_size=SERVE_BATCH, device='cuda')
+    push_all(sc, clip_poses)
+    want = sc.finalize_clip(scene, clip, n_frames)
+    got = np.asarray(out[0]['scores']) if len(out) == 1 else np.zeros(0)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float('inf')
+    # the CLI rounds each score to 6 decimals
+    ok = [o['type'] for o in out] == ['scores'] and err <= 1e-6 and \
+        skipped == len(SERVE_MALFORMED)
+    phase('serve_cli', poses=len(clip_poses), malformed=skipped,
+          lines_out=len(out), frames=len(got), max_abs_err=err,
+          seconds=f'{seconds:.2f}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'serve CLI: {out[:1]}, max |diff| {err}, '
+                           f'{skipped} malformed lines skipped')
+
+
+def predict_cli_phase(config: str, res: dict) -> None:
+    """Phase 26: predict_MoCoDAD_torch.py as a subprocess; its saved
+    losses against the main path's on the same configuration."""
+    t0 = time.perf_counter()
+    proc = run_cli('predict_MoCoDAD_torch.py', '-c', config)
+    seconds = time.perf_counter() - t0
+    path = proc.stdout.strip().splitlines()[-1].split('saved tensors to ')[-1]
+    got = np.load(os.path.join(path, 'prediction.npy'))
+    meta = np.load(os.path.join(path, 'metadata.npy'))
+    ok = got.shape == res['loss'].shape and \
+        np.array_equal(meta, res['meta'])
+    err = float('inf')
+    if ok:
+        err, ok = max_rel_excess(torch.from_numpy(got),
+                                 torch.from_numpy(res['loss']), PATH_RTOL,
+                                 PATH_ATOL)
+    phase('predict_cli', windows=len(got), max_abs_err=err,
+          rtol=PATH_RTOL, atol=PATH_ATOL, seconds=f'{seconds:.2f}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'predict CLI: saved losses differ from the main '
+                           f'path by {err}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = resolve_device('cuda')
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -874,6 +1212,7 @@ def main() -> int:
           fma_f32_bound_share=f'{fma_bound_ms / fma_ms:.4f}',
           gflop=f'{flops / 1e9:.2f}', mbytes=f'{n_bytes / 1e6:.2f}',
           kernel_tflops=f'{flops / kernel_ms / 1e9:.2f}', card=repr(card))
+    serve_times = time_serve_fold_phase(folded, g, peaks_for(name), card)
 
     entries = {}
     work = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -1197,9 +1536,24 @@ def main() -> int:
                 t6_launches=concat_launches[key], t6_ms=ms,
                 t6_plain_ms=plain_ms, t6_bound_ms=b_ms, t6_bound_by=b_by,
                 t6_max_abs_err=frame_errs[(key, 6, N_FOLD)])
+
+        # 23-26. serving: the scorer at both dtypes, its bounds on the
+        # card, the checkpoint formats, the serve and predict CLIs
+        poses = probe_serve_latency.stream_poses(data_dir)
+        for dtype, key in (('float32', 'denoiser'),
+                           ('bfloat16', 'denoiser_bf16')):
+            entries[key].update(serve_phase(cfg, net, poses, dtype, card),
+                                serve_path='serve / serve_bf16',
+                                **serve_times[key])
+        serve_bound_phase(cfg, net, poses, card)
+        checkpoint_phase(cfg, net, poses[:len(poses) // 4])
+        config = cli_config(cfg, work)
+        serve_cli_phase(config, poses)
+        predict_cli_phase(config, res)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    phase('total', seconds=f'{time.perf_counter() - t_start:.1f}')
     print(json.dumps({'kernels': [
         dict(name=k, route='cuda', **entries[k], library_ms=None)
         for k in KERNELS]}), flush=True)

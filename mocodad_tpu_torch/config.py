@@ -13,6 +13,7 @@ preserved in `extras` and accessible as attributes.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import shutil
 from dataclasses import dataclass, field
@@ -231,14 +232,18 @@ _FIELDS = {f.name for f in dataclasses.fields(Config)}
 
 
 def load_config(path: str, finalize: bool = True) -> Config:
-    """Load a reference-format YAML config file.
+    """Load a reference-format YAML config file, or the same keys as a
+    `.json` file (JSON is a subset of YAML).
 
-    PyYAML is imported here and nowhere else: code that builds its
-    `Config` in Python (for example `chip_smoke.py`) runs without it."""
-    import yaml
-
+    PyYAML is imported here and nowhere else, and not for a `.json` file:
+    code that builds its `Config` in Python (for example `chip_smoke.py`)
+    or writes it as JSON runs without it."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        if path.endswith('.json'):
+            raw = json.load(f)
+        else:
+            import yaml
+            raw = yaml.safe_load(f) or {}
     cfg = from_dict(raw)
     if finalize:
         cfg = init_args(cfg)

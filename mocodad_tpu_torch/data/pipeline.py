@@ -4,20 +4,25 @@ Counterpart of `mocodad_tpu/data/pipeline.py` (reference
 `get_dataset_and_loader`, utils/dataset.py:286-330): the base windows are
 stored once and batches carry a transform index, applied on the device by
 `data/transforms.apply_affine_batch`.  Virtual index i maps to
-(sample = i % N, transform = i // N), as in the reference.  Only the
-'robust' normalization (the CSV-trajectory path every shipped config
-takes) is ported; the JSON-pose path is not.
+(sample = i % N, transform = i // N), as in the reference.  The 'robust'
+normalization reads the CSV trajectories (`data/robust.py`, the path every
+shipped config takes); the others read AlphaPose JSON (`data/json_pose.py`),
+as the JAX package's `build_dataset` dispatches
+(mocodad_tpu/data/pipeline.py:54-78).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterator
 
 import numpy as np
 
 from mocodad_tpu_torch.config import Config
+from mocodad_tpu_torch.data.json_pose import json_pose_windows
 from mocodad_tpu_torch.data.robust import robust_pose_windows
+from mocodad_tpu_torch.data.scalers import load_scaler
 
 
 @dataclass
@@ -44,20 +49,34 @@ def build_dataset(cfg: Config, split: str = 'train') -> PoseWindows:
     """Build the window arrays for a split (ref: utils/dataset.py:286-330).
 
     Test/validation always use stride 1 (ref: utils/dataset.py:308,318).
-    The train split fits and saves the robust scaler under cfg.ckpt_dir;
-    the other splits load it (data/robust.py)."""
-    if cfg.normalization_strategy != 'robust':
-        raise NotImplementedError(
-            f'normalization_strategy {cfg.normalization_strategy!r} needs the '
-            'JSON-pose data path, which is not ported yet (robust only)')
+    The robust CSV path fits and saves its scaler under cfg.ckpt_dir on the
+    train split and loads it on the others (data/robust.py)."""
     seg_stride = cfg.seg_stride if split == 'train' else 1
-    data, meta, frames = robust_pose_windows(
-        trajectories_path=cfg.data_dir, split=split, seg_len=cfg.seg_len,
-        seg_stride=seg_stride, vid_res=cfg.vid_res,
-        normalization_strategy=cfg.normalization_strategy,
-        exp_dir=cfg.ckpt_dir, normalize_pose=True,
-        include_global=(cfg.num_coords == 6), debug=cfg.debug,
-        kp18_format=cfg.kp18_format, headless=cfg.headless)
+    if cfg.normalization_strategy == 'robust':
+        data, meta, frames = robust_pose_windows(
+            trajectories_path=cfg.data_dir, split=split, seg_len=cfg.seg_len,
+            seg_stride=seg_stride, vid_res=cfg.vid_res,
+            normalization_strategy=cfg.normalization_strategy,
+            exp_dir=cfg.ckpt_dir, normalize_pose=True,
+            include_global=(cfg.num_coords == 6), debug=cfg.debug,
+            kp18_format=cfg.kp18_format, headless=cfg.headless)
+    else:
+        # no scaler artifact is saved on this branch: the robust strategy
+        # always takes the CSV path above (the reference's dispatch,
+        # utils/dataset.py:309-312), so `use_fitted_scaler` is for a
+        # robust.npz made elsewhere
+        scaler = None
+        if cfg.use_fitted_scaler:
+            scaler = load_scaler(os.path.join(cfg.ckpt_dir, 'robust.npz'))
+        data, meta, frames, _ = json_pose_windows(
+            path_to_json=cfg.pose_path[split], seg_len=cfg.seg_len,
+            seg_stride=seg_stride, start_ofst=cfg.start_offset,
+            kp_threshold=0, num_clips=(5 if cfg.debug else None),
+            normalize=(cfg.normalization_strategy != 'none'),
+            normalization_strategy=cfg.normalization_strategy,
+            kp18_format=cfg.kp18_format, headless=cfg.headless,
+            scaler=scaler, vid_res=cfg.vid_res, symm_range=cfg.symm_range,
+            hip_center=cfg.hip_center, sub_mean=False, return_mean=False)
     # keep only the modeled coordinate channels (ref: utils/dataset.py:75)
     data = data[:, :cfg.num_coords]
     return PoseWindows(data=data, meta=meta, frames=frames,

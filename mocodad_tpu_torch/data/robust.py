@@ -20,6 +20,7 @@ import numpy as np
 from mocodad_tpu_torch.data import scalers as S
 from mocodad_tpu_torch.data import trajectories as T
 from mocodad_tpu_torch.data import windows as W
+from mocodad_tpu_torch.data.json_pose import keypoints17_to_coco18
 
 
 def _subfolder(split: str) -> str:
@@ -140,9 +141,7 @@ def robust_pose_windows(trajectories_path: str, split: str, seg_len: int,
         data[..., 6] = 1.0
 
     if kp18_format and data.shape[-2] == 17:
-        raise NotImplementedError(
-            'kp18_format needs the JSON-pose keypoint remapping, which is '
-            'not ported yet')
+        data = keypoints17_to_coco18(data)
     if headless:
         data = data[:, :, :14]
 

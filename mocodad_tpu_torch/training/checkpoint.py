@@ -11,7 +11,11 @@ so that the port's eval reads it (`utils/weights.load_checkpoint_state_dict`):
     'step'              updates applied so far, for resume
 
 and a `.json` sidecar with the epoch (and the monitored value).  The JAX
-package's msgpack format is neither read nor written here.
+package's own checkpoints are flax msgpack train states; `load_state_dict`
+reads one as a nested dict (mocodad_tpu/training/checkpoint.py:55-67),
+without flax, and `is_torch_checkpoint` tells the two formats apart; both
+live in `utils/weights.py` beside the format dispatch and are re-exported
+here under the JAX module's names.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+# the JAX module's names for the format check and the msgpack reader
+from mocodad_tpu_torch.utils.weights import (  # noqa: F401
+    is_torch_checkpoint, load_state_dict)
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any],

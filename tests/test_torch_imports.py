@@ -21,9 +21,10 @@ _FORBIDDEN = ('jax', 'flax', 'optax')
 
 
 def _port_sources():
-    files = [os.path.join(REPO, 'eval_MoCoDAD_torch.py'),
-             os.path.join(REPO, 'train_MoCoDAD_torch.py'),
-             os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, name) for name in (
+        'eval_MoCoDAD_torch.py', 'train_MoCoDAD_torch.py',
+        'serve_MoCoDAD_torch.py', 'predict_MoCoDAD_torch.py',
+        'chip_smoke.py')]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return files
@@ -43,7 +44,13 @@ def test_import_leaves_jax_out():
         'import mocodad_tpu_torch.training.checkpoint\n'
         'import mocodad_tpu_torch.training.ema\n'
         'import mocodad_tpu_torch.data.prefetch\n'
+        'import mocodad_tpu_torch.serve, mocodad_tpu_torch.utils.msgpack\n'
+        'import mocodad_tpu_torch.data.json_pose\n'
+        'import mocodad_tpu_torch.data.convert\n'
+        'import mocodad_tpu_torch.tools.convert_checkpoint\n'
+        'import mocodad_tpu_torch.tools.perf.probe_serve_latency\n'
         'import eval_MoCoDAD_torch, train_MoCoDAD_torch, chip_smoke\n'
+        'import serve_MoCoDAD_torch, predict_MoCoDAD_torch\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "optax", "mocodad_tpu")]\n'
         'print(bad)\n'

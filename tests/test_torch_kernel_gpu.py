@@ -372,3 +372,44 @@ def test_generate_concat_runs_through_the_kernel(folded):
                                torch.Generator('cuda').manual_seed(6))
     assert P.DENOISER.launches == before + 9
     assert sel.shape == (8, 2, 3, 17) and torch.isfinite(loss).all()
+
+
+def test_stream_scorer_on_the_card(tmp_path):
+    """The streaming scorer on the card: losses come back into pinned host
+    buffers behind one CUDA event per batch, at most max_pending_batches
+    are in flight at a launch and after it, and every launch runs B1 once
+    per DDPM step."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; the kernel has no CPU mode')
+    from mocodad_tpu_torch.data import scalers as S
+    from mocodad_tpu_torch.serve import StreamScorer
+    cfg = flagship_config(n_generated_samples=2, num_transform=5,
+                          ckpt_dir=str(tmp_path), vid_res=[640, 360],
+                          use_hr=False, frames_shift=2, filter_kernel_size=5)
+    rs = np.random.RandomState(0)
+    _, scaler = S.scale_trajectories(rs.uniform(-0.5, 0.5, (512, 34)),
+                                     strategy='robust')
+    S.save_scaler(scaler, str(tmp_path / 'local_robust.npz'))
+    net = seeded_state(MoCoDADModel(cfg).build_net(), seed=0)
+    scorer = StreamScorer(cfg, net, batch_size=20, flush_every=20,
+                          max_pending_batches=2)
+    in_flight, step = [], scorer._step
+
+    def spy(*a, **k):
+        in_flight.append(len(scorer._pending_dev))
+        return step(*a, **k)
+
+    scorer._step = spy
+    before = P.DENOISER.launches
+    for frame in range(1, 30):
+        for person in range(2):
+            scorer.push(0, 0, person, frame,
+                        rs.uniform(100, 300, (17, 2)).astype(np.float32))
+            assert len(scorer._pending_dev) <= 2
+            for b in scorer._pending_dev:
+                assert b.done is not None and b.loss.is_pinned()
+    assert in_flight and max(in_flight) <= 1
+    assert P.DENOISER.launches - before == 9 * len(in_flight)
+    scores = scorer.finalize_clip(0, 0, n_frames=30)
+    assert scores.shape == (30,) and np.isfinite(scores).all()
+    assert not scorer._pending_dev and scorer.pending == 0

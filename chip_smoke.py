@@ -107,10 +107,33 @@ Phases, each printing one line:
                predict_MoCoDAD_torch.py as subprocesses on a JSON config of
                the main path, their output read back against the scorer in
                this process and the main path's losses.
+ 27-33. the latent variant at config/UBnormal/mocodad-latent_*.yaml's
+               widths (`config.latent_config`: batch 1024, latent 64, MLP
+               [64, 128, 128, 64]) on the same synthetic set, with every
+               launch count set to 0 before these phases and checked 0
+               after each path in this process, and each CLI's own
+               counts checked 0 (no kernel of the port runs there):
+               latent_pretrain (`Trainer.fit`, 2 epochs, the
+               reconstruction loss as the validation metric, top-2, last
+               and best_weights), latent_diffusion (2 epochs from the
+               pretrain stage's best_weights.ckpt: the transferred
+               parameters bit-equal before and after, every denoiser
+               parameter moved, the frozen encoders' BatchNorm statistics
+               moved; the AUC each epoch through the latent generate),
+               latent_main (`restore_and_infer` on the test settings, 50
+               samples x 9 steps, to the AUC; window-views/s),
+               latent_agree (both stages on the card against the CPU on
+               the same weights and noise, and one train_dtype bfloat16
+               epoch of each), latent_profile (one pass under
+               torch.profiler: device ms, idle share), latent_serve
+               (`StreamScorer` at the diffusion stage over the test
+               split's traffic; the pretrain stage refused), latent_cli
+               (the train CLI at both stages, the eval and predict CLIs).
 Then the script's total seconds, one JSON line with each kernel's numbers
 (B1's entries also carry `serve_*` and `n12800_*` keys: the serve path's
-launches and window-views/s, and B1's numbers at N = 12,800), the card
-line, and last
+launches and window-views/s, and B1's numbers at N = 12,800; every entry
+`latent_launches`, its count over phases 27-33, 0), the card line, and
+last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
 """
@@ -132,7 +155,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mocodad_tpu_torch.config import flagship_config, load_config
+from mocodad_tpu_torch.config import (flagship_config, latent_config,
+                                      load_config)
 from mocodad_tpu_torch.data import build_dataset, synthetic
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.eval.harness import (post_processing,
@@ -148,7 +172,9 @@ from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
 from mocodad_tpu_torch.tools.perf.common import (N_ROWS as N_FOLD,
                                                  fold_inputs, rel_errors,
                                                  time_ms)
-from mocodad_tpu_torch.data import apply_affine_batch, make_loader, to_device
+from mocodad_tpu_torch.data import (affine_transform_matrices,
+                                    apply_affine_batch, make_loader,
+                                    to_device)
 from mocodad_tpu_torch.training.inference import (restore_and_infer,
                                                   run_inference)
 from mocodad_tpu_torch.training.loop import SPANS, Trainer
@@ -733,13 +759,13 @@ def time_frames_phase(g, peaks, card: str) -> dict:
 
 
 def eval_pass(model, net, ds, cfg, noise):
-    """One `run_inference` pass over `ds` on the given noise: () ->
-    (result, host seconds)."""
+    """One `run_inference` pass over `ds` on the given noise, on the net's
+    device: () -> (result, host seconds)."""
     def run():
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = run_inference(model, net, ds, cfg.batch_size, cfg.seed,
-                          torch.device('cuda'), noise_fn=noise)
+                          next(net.parameters()).device, noise_fn=noise)
         return r, time.perf_counter() - t
     return run
 
@@ -1072,15 +1098,49 @@ def cli_config(cfg, work: str) -> str:
     return path
 
 
-def run_cli(script: str, *args, stdin: str = ''):
+# Runs a CLI script as __main__, then prints the launch counts of the
+# port's kernels in its process as the last line of its standard error.
+CLI_WRAPPER = (
+    'import atexit, json, runpy, sys\n'
+    'from chip_smoke import launch_counts\n'
+    'atexit.register(lambda: print("launches", json.dumps(launch_counts()),'
+    ' file=sys.stderr))\n'
+    'sys.argv = sys.argv[1:]\n'
+    'runpy.run_path(sys.argv[0], run_name="__main__")\n')
+
+
+def run_clis(*calls, stdin: str = ''):
+    """Run each (script, *args) as a subprocess, all at once, with `stdin`
+    on its standard input, and wait for every one (600 s at most); raise
+    if any fails.  Every process is stopped on the way out.  Returns their
+    CompletedProcess in order, each with `launches`, the CLI's own launch
+    counts."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, os.path.join(repo, script),
-                           *args], input=stdin, capture_output=True,
-                          text=True, timeout=600, cwd=repo)
-    if proc.returncode != 0:
-        raise RuntimeError(f'{script} exited {proc.returncode}: '
-                           f'{proc.stderr[-2000:]}')
-    return proc
+    procs = [subprocess.Popen([sys.executable, '-c', CLI_WRAPPER,
+                               os.path.join(repo, c[0]), *c[1:]],
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=repo)
+             for c in calls]
+    try:
+        out = [subprocess.CompletedProcess(p.args, None, *p.communicate(
+            stdin, timeout=600)) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, o in zip(calls, procs, out):
+        o.returncode = p.returncode
+        if p.returncode != 0:
+            raise RuntimeError(f'{c[0]} exited {p.returncode}: '
+                               f'{o.stderr[-2000:]}')
+        o.launches = json.loads([line for line in o.stderr.splitlines()
+                                 if line.startswith('launches ')][-1][9:])
+    return out
+
+
+def run_cli(script: str, *args, stdin: str = ''):
+    return run_clis((script, *args), stdin=stdin)[0]
 
 
 def serve_cli_phase(config: str, poses) -> None:
@@ -1143,6 +1203,416 @@ def predict_cli_phase(config: str, res: dict) -> None:
     if not ok:
         raise RuntimeError(f'predict CLI: saved losses differ from the main '
                            f'path by {err}')
+
+
+# ---------------------------------------------------------------------------
+# The latent variant (config/UBnormal/mocodad-latent_{train,test}.yaml):
+# no kernel of the port runs on its paths, checked with the counters
+# ---------------------------------------------------------------------------
+
+LATENT_EPOCHS = 2
+# the card against the CPU, float32 on both sides (TF32 off): per-window
+# losses within 1e-5 of the largest loss
+LATENT_AGREE_REL = 1e-5
+
+
+def latent_cfg(stage: str, data_dir: str, ckpt_dir: str, **kw):
+    """mocodad-latent_train.yaml's settings at `stage` on the synthetic
+    set (its own frame size, no HR masks); `kw` overrides any of them."""
+    base = dict(data_dir=data_dir, ckpt_dir=ckpt_dir, vid_res=[640, 360],
+                gt_path=os.path.join(data_dir, 'validating',
+                                     'test_frame_mask'),
+                extras={'log_every_n_steps': 5})
+    base.update(kw)
+    return latent_config(stage, **base)
+
+
+def latent_test_cfg(data_dir: str, ckpt_dir: str, **kw):
+    """mocodad-latent_test.yaml's settings on the synthetic test split
+    (50 samples, 5 views, batch 1024; no HR masks, no saved tensors)."""
+    return latent_cfg('diffusion', data_dir, ckpt_dir, split='test',
+                      validation=False, n_generated_samples=50,
+                      load_ckpt='best_weights.ckpt',
+                      gt_path=os.path.join(data_dir, 'testing',
+                                           'test_frame_mask'), **kw)
+
+
+def check_no_launches(what: str) -> None:
+    """Raise if any kernel of the port launched since the latent phases
+    began: a latent path that reached B1, B2 or B3 would be a fault."""
+    counts = launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f'the latent {what} path launched kernels: '
+                           f'{counts}')
+
+
+def latent_fit_phase(name: str, cfg, card: str):
+    """Phases 27-28: `Trainer.fit` for LATENT_EPOCHS epochs with
+    validation; one line per epoch (steps/s, windows/s, the stage's
+    losses, its monitored metric, validation seconds), then the
+    checkpoints and the launch counts (all 0).  Returns the trainer."""
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    train_ds = build_dataset(cfg, split='train')
+    val_ds = build_dataset(cfg, split='validation')
+    trainer = Trainer(cfg, device='cuda')
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, val_ds, n_epochs=LATENT_EPOCHS)
+    fit_seconds = time.perf_counter() - t0
+    check_no_launches(name)
+    losses = (('loss', 'loss_unet', 'loss_recons') if cfg.stage == 'pretrain'
+              else ('loss', 'loss_noise'))
+    metric = 'pretrain_rec_loss' if cfg.stage == 'pretrain' else 'AUC'
+    steps = trainer.steps_per_epoch
+    for e in trainer.history:
+        phase(name, epoch=e['epoch'], steps=steps, windows=len(train_ds),
+              steps_per_s=f'{steps / e["train_seconds"]:.2f}',
+              windows_per_s=f'{e["windows_per_s"]:.1f}',
+              **{k: f'{e[k]:.6f}' for k in losses + (metric,)},
+              val_windows=len(val_ds),
+              val_seconds=f'{e["val_seconds"]:.3f}', card=repr(card))
+    with open(os.path.join(cfg.ckpt_dir, 'topk.json')) as f:
+        kept = [os.path.join(cfg.ckpt_dir, n) for _, n in
+                json.load(f)['entries']]
+    files = kept + [os.path.join(cfg.ckpt_dir, n)
+                    for n in ('last.ckpt', 'best_weights.ckpt')]
+    ok = (len(trainer.history) == LATENT_EPOCHS and len(kept) == 2
+          and all(os.path.exists(f) for f in files)
+          and all(np.isfinite([e[k] for k in losses + (metric,)]).all()
+                  for e in trainer.history)
+          and (metric != 'AUC'
+               or all(0 <= e['AUC'] <= 1 for e in trainer.history)))
+    phase(name, fit_seconds=f'{fit_seconds:.3f}', top2=len(kept),
+          checkpoints=','.join(os.path.basename(f) for f in files),
+          launches=0, ok=ok)
+    if not ok:
+        raise RuntimeError(f'{name}: malformed epochs {trainer.history} or '
+                           f'checkpoints {files}')
+    return trainer
+
+
+def latent_diffusion_phase(data_dir: str, work: str, pretrained: str,
+                           card: str):
+    """Phase 28: the diffusion stage from the pretrain stage's
+    best_weights.ckpt.  Every parameter outside the denoiser must be
+    bit-equal to the pretrained one before and after, every denoiser
+    parameter must move, and so must the frozen encoders' BatchNorm
+    statistics (they stay in train mode, as JAX's do).  Returns the
+    diffusion stage's config."""
+    cfg = latent_cfg('diffusion', data_dir,
+                     os.path.join(work, 'latent_diffusion'),
+                     pretrained_model_ckpt_path=pretrained)
+    first = Trainer(cfg, device='cuda')
+    first.init_state(1)
+    start = {k: v.detach().clone()
+             for k, v in first.net.state_dict().items()}
+    pre = load_checkpoint_state_dict(pretrained)
+    copied = [k for k, v in start.items() if k in pre
+              and tuple(pre[k].shape) == tuple(v.shape)
+              and not k.endswith('num_batches_tracked')]
+    transferred = all(torch.equal(start[k].cpu(), pre[k]) for k in copied)
+    trainer = latent_fit_phase('latent_diffusion', cfg, card)
+    after = trainer.net.state_dict()
+    params = [k for k, _ in trainer.net.named_parameters()]
+    frozen = [k for k in params if not k.startswith('denoiser.')]
+    stats = [k for k in after if 'running' in k
+             and not k.startswith('denoiser.')]
+    frozen_equal = all(torch.equal(after[k], start[k]) for k in frozen)
+    denoiser_moved = all(not torch.equal(after[k], start[k])
+                         for k in params if k.startswith('denoiser.'))
+    stats_moved = sum(not torch.equal(after[k], start[k]) for k in stats)
+    ok = transferred and frozen_equal and denoiser_moved and \
+        stats_moved == len(stats) and len(copied) > 100
+    phase('latent_diffusion', transferred=len(copied),
+          transferred_equal=transferred, frozen_params=len(frozen),
+          frozen_bit_equal=frozen_equal,
+          denoiser_params=len(params) - len(frozen),
+          denoiser_all_moved=denoiser_moved,
+          frozen_bn_stats_moved=f'{stats_moved}/{len(stats)}', ok=ok)
+    if not ok:
+        raise RuntimeError('latent diffusion stage: the transfer or the '
+                           'freezing does not hold')
+    return cfg
+
+
+def latent_net(model, path: str, dev: str):
+    net = model.build_net()
+    net.load_state_dict(load_checkpoint_state_dict(path), strict=True)
+    return net.to(dev).eval()
+
+
+def latent_main_phase(mcfg, card: str):
+    """Phase 29: `restore_and_infer` on mocodad-latent_test.yaml's settings
+    (50 samples x 9 DDPM steps, 5 views, batch 1024) to the AUC, no kernel
+    launched; then two `run_inference` passes on the restored weights,
+    timed.  Returns (model, net, dataset, result, window-views/s)."""
+    t0 = time.perf_counter()
+    model, ds, res = restore_and_infer(mcfg, device='cuda')
+    seconds = time.perf_counter() - t0
+    check_no_launches('eval')
+    auc = post_processing_from_config(res['loss'], res['trans'],
+                                      res['meta'], res['frames'], mcfg)
+    net = latent_net(model, os.path.join(mcfg.ckpt_dir, mcfg.load_ckpt),
+                     'cuda')
+    run = eval_pass(model, net, ds, mcfg, None)
+    rates = [len(ds) / run()[1] for _ in range(2)]
+    check_no_launches('eval')
+    ok = res['loss'].shape == (len(ds),) and \
+        bool(np.isfinite(res['loss']).all()) and 0 <= auc <= 1
+    phase('latent_main', stage=model.stage, windows=len(ds),
+          batches=-(-len(ds) // mcfg.batch_size),
+          samples=model.n_generated_samples,
+          steps=len(model.chain_steps()[0]), seconds=f'{seconds:.3f}',
+          windows_per_s=f'{len(ds) / seconds:.1f}',
+          pass_windows_per_s=json.dumps([round(r, 1) for r in rates]),
+          auc=f'{auc:.6f}', b1_b2_b3_launches=0, ok=ok, card=repr(card))
+    if not ok:
+        raise RuntimeError('latent main path output malformed')
+    return model, net, ds, res, max(rates)
+
+
+def latent_agree_phase(pcfg, mcfg, data_dir: str, work: str, card: str):
+    """Phase 30: both stages on the card and on the CPU, same weights, the
+    first 1024 window-views of the test split, the same noise_override:
+    the per-window losses within LATENT_AGREE_REL of the largest; then one
+    `train_dtype: bfloat16` epoch of each stage with finite losses."""
+    ds = build_dataset(mcfg, split='test')
+    batch = next(iter(make_loader(ds, mcfg.batch_size)))
+    mats = torch.as_tensor(affine_transform_matrices(mcfg.num_transform))
+    data = apply_affine_batch(torch.from_numpy(batch['data']), mats,
+                              torch.from_numpy(batch['trans']).long())
+    for stage, cfg in (('pretrain', pcfg), ('diffusion', mcfg)):
+        model = M.build_model(cfg)
+        path = os.path.join(cfg.ckpt_dir, 'best_weights.ckpt')
+        out = {}
+        for d in ('cuda', 'cpu'):
+            net = latent_net(model, path, d)
+            x = data.to(d)
+            if stage == 'pretrain':
+                _, loss = model.reconstruction_losses(net, x)
+            else:
+                rng = np.random.default_rng(5)
+                n, dim = x.shape[0] * model.n_generated_samples, \
+                    model.latent_embedding_dim
+                noise = (rng.standard_normal((n, dim), np.float32),
+                         rng.standard_normal((9, n, dim), np.float32))
+                _, loss = model.generate(net, x, noise_override=tuple(
+                    torch.from_numpy(a).to(d) for a in noise))
+            out[d] = loss.double().cpu()
+        err = float((out['cuda'] - out['cpu']).abs().max())
+        rel = err / float(out['cpu'].abs().max())
+        ok = rel <= LATENT_AGREE_REL and bool(
+            torch.isfinite(out['cuda']).all())
+        phase('latent_agree', stage=stage, windows=len(out['cpu']),
+              max_abs_err=err, max_rel=f'{rel:.3e}',
+              bound_rel=LATENT_AGREE_REL, ok=ok)
+        if not ok:
+            raise RuntimeError(f'latent {stage}: the card disagrees with '
+                               f'the CPU by {rel:.3e} of the largest loss')
+    for stage, cfg in (('pretrain', pcfg), ('diffusion', mcfg)):
+        bcfg = latent_cfg(stage, data_dir,
+                          os.path.join(work, f'latent_bf16_{stage}'),
+                          pretrained_model_ckpt_path=os.path.join(
+                              pcfg.ckpt_dir, 'best_weights.ckpt'),
+                          extras={'train_dtype': 'bfloat16'})
+        os.makedirs(bcfg.ckpt_dir, exist_ok=True)
+        t = Trainer(bcfg, device='cuda')
+        t.fit(build_dataset(bcfg, split='train'), None, n_epochs=1)
+        check_no_launches('bfloat16 train')
+        e = t.history[0]
+        keys = [k for k in e if k.startswith('loss')]
+        ok = bool(np.isfinite([e[k] for k in keys]).all())
+        phase('latent_agree', stage=stage, train_dtype='bfloat16',
+              steps=t.steps_per_epoch,
+              steps_per_s=f'{t.steps_per_epoch / e["train_seconds"]:.2f}',
+              **{k: f'{e[k]:.6f}' for k in keys}, ok=ok, card=repr(card))
+        if not ok:
+            raise RuntimeError(f'latent {stage} at bfloat16: {e}')
+
+
+def latent_profile_phase(model, net, ds, mcfg, card: str) -> None:
+    """Phase 31: one `run_inference` pass under torch.profiler: the
+    device ms, the idle share, the largest activities."""
+    seconds, kernel_ms, dev_ms, top = device_time_split(
+        eval_pass(model, net, ds, mcfg, None))
+    wall_ms = seconds * 1e3
+    measured = dev_ms > 0
+    phase('latent_profile', seconds=f'{seconds:.3f}',
+          device_ms=f'{dev_ms:.1f}' if measured
+          else 'not measured (no device events)',
+          idle_share=(f'{1 - dev_ms / wall_ms:.3f}' if measured
+                      else 'not measured'),
+          denoiser_kernel_ms=kernel_ms,
+          top=json.dumps([[k, round(v, 2)] for k, v in top]),
+          card=repr(card))
+    if kernel_ms:
+        raise RuntimeError('a denoiser kernel ran on the latent path')
+
+
+def latent_noise(dim: int, steps: int):
+    """Each flush's (z0, zs) drawn on the card from its flush index."""
+    def fn(i: int, rows: int):
+        g = torch.Generator(device='cuda').manual_seed(3000 + i)
+        return (torch.randn((rows, dim), generator=g, device='cuda'),
+                torch.randn((steps, rows, dim), generator=g, device='cuda'))
+    return fn
+
+
+def latent_serve_phase(mcfg, net, poses, card: str) -> None:
+    """Phase 32: `StreamScorer` on the diffusion stage at batch 256 over
+    the test split's traffic, timed, no kernel launched; on injected noise
+    each flush's losses equal `generate` on the same batch, views and
+    noise, and finalize_clip equals the offline scoring of the streamed
+    losses; the pretrain stage is refused."""
+    scorer = StreamScorer(mcfg, net, batch_size=SERVE_BATCH,
+                          max_pending_batches=1 << 20, device='cuda')
+    data = torch.zeros((SERVE_BATCH, mcfg.num_coords, mcfg.seg_len,
+                        mcfg.n_joints), device='cuda')
+    scorer._step(data, torch.zeros(SERVE_BATCH, dtype=torch.long,
+                                   device='cuda'), -1)
+    t0 = time.perf_counter()
+    push_all(scorer, poses)
+    views = scorer.pending
+    t1 = time.perf_counter()
+    scorer.flush(force=True)
+    scorer._drain()
+    seconds = time.perf_counter() - t0
+    check_no_launches('serve')
+
+    model = scorer.model
+    noise = latent_noise(model.latent_embedding_dim,
+                         len(model.chain_steps()[0]))
+    sc = StreamScorer(mcfg, net, batch_size=SERVE_BATCH, device='cuda')
+    step, seen = sc._step, []
+
+    def injected(d, tr, i):
+        nz = noise(i, d.shape[0] * model.n_generated_samples)
+        loss = step(d, tr, i, noise_override=nz)
+        seen.append((d, tr, nz, loss))
+        return loss
+    sc._step = injected
+    push_all(sc, poses)
+    sc.flush(force=True)
+    sc._drain()
+    mats = sc._mats
+    err = max(float((model.generate(
+        net, apply_affine_batch(d, mats, tr.long()), noise_override=nz)[1]
+        - loss).abs().max()) for d, tr, nz, loss in seen)
+    loss, trans, meta, frames = scored(sc)
+    _, offline, _ = post_processing(
+        loss, trans, meta, frames, gt_path=mcfg.gt_path,
+        num_transform=mcfg.num_transform, dataset_name=mcfg.dataset_choice,
+        split='test', use_hr=False, pad_size=mcfg.pad_size,
+        filter_kernel_size=mcfg.filter_kernel_size,
+        frames_shift=mcfg.frames_shift, return_scores=True)
+    streamed = []
+    for f in sorted(f for f in os.listdir(mcfg.gt_path)
+                    if f.endswith('.npy')):
+        n_frames = np.load(os.path.join(mcfg.gt_path, f)).shape[0]
+        streamed.append(sc.finalize_clip(int(f.split('_')[0]),
+                                         int(f.split('_')[1][:-4]),
+                                         n_frames))
+    fin_err = float(np.abs(np.concatenate(streamed) - offline).max())
+    try:
+        StreamScorer(dataclasses.replace(mcfg, stage='pretrain'), None,
+                     device='cuda')
+        refused = False
+    except NotImplementedError:
+        refused = True
+    ok = err == 0.0 and fin_err == 0.0 and refused and \
+        len(loss) == views and bool(np.isfinite(loss).all())
+    phase('latent_serve', window_views=views, pushes=len(poses),
+          batches=-(-views // SERVE_BATCH), launches=0,
+          push_seconds=f'{t1 - t0:.4f}', seconds=f'{seconds:.4f}',
+          window_views_per_s=f'{views / seconds:.1f}',
+          flush_vs_generate_max_abs=err,
+          finalize_vs_offline_max_abs=fin_err, pretrain_refused=refused,
+          ok=ok, card=repr(card))
+    if not ok:
+        raise RuntimeError(f'latent serve: flush against generate {err}, '
+                           f'finalize against offline {fin_err}, pretrain '
+                           f'refused {refused}')
+
+
+def latent_cli_phase(data_dir: str, work: str) -> None:
+    """Phase 33: train_MoCoDAD_torch.py at pretrain and then at diffusion
+    (one epoch each, JSON configs of mocodad-latent_train.yaml), then
+    eval_MoCoDAD_torch.py and predict_MoCoDAD_torch.py side by side on
+    mocodad-latent_test.yaml's settings, as subprocesses; the eval's AUC
+    and the predict's losses against `restore_and_infer` in this process
+    on the same configuration, and each CLI's own launch counts all 0."""
+    root = os.path.join(work, 'latent_cli')
+    os.makedirs(root, exist_ok=True)
+    common = dict(exp_dir=root, create_experiment_dir=True, n_epochs=1)
+
+    def write(name, cfg, **kw):
+        d = cfg.to_dict()
+        d.update(common, test_path=cfg.gt_path, dir_name=name)
+        d.update(kw)
+        path = os.path.join(root, f'{name}.json')
+        with open(path, 'w') as f:
+            json.dump(d, f)
+        return path
+    ckpt = os.path.join(root, 'UBnormal', 'pretrain', 'best_weights.ckpt')
+    configs = [
+        write('pretrain', latent_cfg('pretrain', data_dir, root)),
+        write('diffusion', latent_cfg('diffusion', data_dir, root,
+                                      pretrained_model_ckpt_path=ckpt)),
+        write('test', latent_test_cfg(data_dir, root), dir_name='diffusion')]
+    t0 = time.perf_counter()
+    out = [run_cli('train_MoCoDAD_torch.py', '-c', configs[0]),
+           run_cli('train_MoCoDAD_torch.py', '-c', configs[1])]
+    # the eval and predict CLIs read the same checkpoint: side by side
+    out += run_clis(('eval_MoCoDAD_torch.py', '-c', configs[2]),
+                    ('predict_MoCoDAD_torch.py', '-c', configs[2]))
+    seconds = time.perf_counter() - t0
+    launches = [o.launches for o in out]
+    cli_auc = float(out[2].stdout.split('AUC score: ')[-1].split()[0])
+    saved = out[3].stdout.strip().splitlines()[-1].split(
+        'saved tensors to ')[-1]
+    got = np.load(os.path.join(saved, 'prediction.npy'))
+    tcfg = load_config(configs[2])
+    _, _, res = restore_and_infer(tcfg, device='cuda')
+    check_no_launches('CLI comparison')
+    auc = post_processing_from_config(res['loss'], res['trans'],
+                                      res['meta'], res['frames'], tcfg)
+    err, close = float('inf'), False
+    if got.shape == res['loss'].shape:
+        err, close = max_rel_excess(torch.from_numpy(got),
+                                    torch.from_numpy(res['loss']),
+                                    PATH_RTOL, PATH_ATOL)
+    # the CLI prints the AUC to 6 decimals
+    ok = ('checkpointing on pretrain_rec_loss (min)' in out[0].stdout
+          and 'checkpointing on AUC (max)' in out[1].stdout
+          and abs(cli_auc - auc) <= 5e-7 and close
+          and not any(any(n.values()) for n in launches))
+    phase('latent_cli', runs='train pretrain, train diffusion, eval, predict',
+          eval_auc=f'{cli_auc:.6f}', in_process_auc=f'{auc:.6f}',
+          predict_vs_in_process_max_abs=err, rtol=PATH_RTOL, atol=PATH_ATOL,
+          cli_launches=json.dumps([sum(n.values()) for n in launches]),
+          seconds=f'{seconds:.2f}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'latent CLIs: AUC {cli_auc} against {auc}, '
+                           f'saved losses {err} from the in-process run, '
+                           f'launches {launches}')
+
+
+def latent_phases(data_dir: str, work: str, poses, card: str) -> dict:
+    """Phases 27-33, with every launch count set to 0 before them; returns
+    this process's counts after them, checked 0 after each path.  The
+    CLIs of phase 33 report their own counts, checked 0 there."""
+    reset_launches()
+    pcfg = latent_cfg('pretrain', data_dir,
+                      os.path.join(work, 'latent_pretrain'))
+    latent_fit_phase('latent_pretrain', pcfg, card)
+    pretrained = os.path.join(pcfg.ckpt_dir, 'best_weights.ckpt')
+    dcfg = latent_diffusion_phase(data_dir, work, pretrained, card)
+    mcfg = latent_test_cfg(data_dir, dcfg.ckpt_dir)
+    model, net, ds, _, _ = latent_main_phase(mcfg, card)
+    latent_agree_phase(pcfg, mcfg, data_dir, work, card)
+    latent_profile_phase(model, net, ds, mcfg, card)
+    latent_serve_phase(mcfg, net, poses, card)
+    latent_cli_phase(data_dir, work)
+    return launch_counts()
 
 
 def main() -> int:
@@ -1550,6 +2020,11 @@ def main() -> int:
         config = cli_config(cfg, work)
         serve_cli_phase(config, poses)
         predict_cli_phase(config, res)
+
+        # 27-33. the latent variant: no kernel on any of its paths
+        latent_counts = latent_phases(data_dir, work, poses, card)
+        for k in entries:
+            entries[k]['latent_launches'] = latent_counts[k]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

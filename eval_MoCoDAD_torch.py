@@ -3,6 +3,14 @@
 
     python eval_MoCoDAD_torch.py -c config/UBnormal/mocodad_test.yaml
     python eval_MoCoDAD_torch.py -c <config> --device cpu
+    python eval_MoCoDAD_torch.py -c <config> --report   # + report_{split}.html
+
+Both stages of the latent variant (config/UBnormal/mocodad-latent_*.yaml)
+run here too; they launch no kernel of the port and compute in float32
+at any `eval_dtype`, as the JAX latent model does.  `--report` writes the
+per-clip score-analysis HTML page (mocodad_tpu_torch/viz/report.py, which
+needs matplotlib) into ckpt_dir next to the AUC, on the live and on the
+load_tensors route, as eval_MoCoDAD.py does.
 
 The checkpoint (ckpt_dir/load_ckpt) is a reference-named state dict written
 by torch.save, bare or as Lightning's {'state_dict': ...}, or a checkpoint
@@ -20,12 +28,16 @@ at float32 the two packages agree within 3.1e-7.
 """
 
 import argparse
+import os
 
 
 def main():
     parser = argparse.ArgumentParser(description='MoCoDAD (PyTorch)')
     parser.add_argument('-c', '--config', type=str, required=True)
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
+    parser.add_argument('--report', action='store_true',
+                        help='also write the per-clip score-analysis HTML '
+                             'report (viz/report.py) next to the AUC')
     from mocodad_tpu_torch.config import (add_eval_profile_arg,
                                           apply_eval_profile,
                                           effective_n_generated_samples,
@@ -47,6 +59,9 @@ def main():
         auc = post_processing_from_config(
             pred, t['trans'], t['metadata'], t['frames'], cfg)
         print(f'AUC score: {auc:.6f}')
+        if cli.report:
+            _write_report(pred, t['trans'], t['metadata'], t['frames'], cfg,
+                          auc)
         return auc
 
     from mocodad_tpu_torch.training.inference import (
@@ -59,7 +74,19 @@ def main():
     auc = post_processing_from_config(res['loss'], res['trans'], res['meta'],
                                       res['frames'], cfg)
     print(f'AUC score: {auc:.6f}')
+    if cli.report:
+        _write_report(res['loss'], res['trans'], res['meta'], res['frames'],
+                      cfg, auc)
     return auc
+
+
+def _write_report(out, trans, meta, frames, cfg, auc):
+    from mocodad_tpu_torch.viz import html_report
+    path = os.path.join(cfg.ckpt_dir, f'report_{cfg.split}.html')
+    html_report(out, trans, meta, frames, cfg.gt_path, path,
+                frames_shift=cfg.frames_shift,
+                kernel_size=cfg.filter_kernel_size, auc=auc)
+    print(f'report written to {path}')
 
 
 if __name__ == '__main__':

@@ -405,3 +405,30 @@ def flagship_config(**overrides) -> Config:
         aggregation_strategy='best', seed=0)
     base.update(overrides)
     return Config(**base)
+
+
+def latent_config(stage: str = 'pretrain', **overrides) -> Config:
+    """The latent variant as config/UBnormal/mocodad-latent_train.yaml
+    sets it up (stage 'pretrain', or its second run at stage 'diffusion'),
+    for code that builds its `Config` without PyYAML (`chip_smoke.py`).
+    mocodad-latent_test.yaml is stage 'diffusion' with split 'test', no
+    validation, HR masking, 50 samples and save_tensors.  Paths come from
+    Config defaults unless overridden; tests/test_torch_latent_nn.py holds
+    every other key to the YAML files."""
+    base = dict(
+        split='train', seed=999, validation=True, use_hr=False,
+        use_ema=False, embedding_dim=16, dropout=0.0,
+        conditioning_strategy='inject', conditioning_architecture='AE',
+        conditioning_indices=[0, 1, 2], h_dim=32, latent_dim=16,
+        channels=[32, 16, 32], noise_steps=10, opt_lr=1e-4,
+        loss_fn='smooth_l1', rec_weight=0.01, n_generated_samples=5,
+        model_return_value='loss', aggregation_strategy='best',
+        filter_kernel_size=30, frames_shift=18, dataset_choice='UBnormal',
+        seg_len=6, vid_res=[1080, 720], batch_size=1024, pad_size=-1,
+        headless=False, hip_center=False, kp18_format=False,
+        normalization_strategy='robust', num_coords=2, num_transform=5,
+        seg_stride=1, seg_th=0, start_offset=0, symm_range=True,
+        diffusion_on_latent=True, latent_embedding_dim=64,
+        hidden_sizes=[64, 128, 128, 64], stage=stage)
+    base.update(overrides)
+    return Config(**base)

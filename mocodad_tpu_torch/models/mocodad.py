@@ -6,8 +6,9 @@ with the AE / E / E_unet condition encoders, concat, inbetween_imp,
 random_imp, no_condition) and the STSAEUnet denoiser: the training loss of
 `loss` (at `train_dtype` float32 or bfloat16) and the DDPM or DDIM chain of
 `generate`, with antithetic draws on request (at `eval_dtype` float32 or
-bfloat16).  The latent variant is not ported yet and raises
-NotImplementedError, as does any other dtype.
+bfloat16); another dtype raises NotImplementedError.  The latent variant
+subclasses this model in `models/mocodad_latent.py`, and `build_model`
+dispatches to it.
 
 Generation folds the sample axis S into the batch, b-major
 (row = b*S + s), and runs the chain with the sampler state in the
@@ -53,7 +54,8 @@ from mocodad_tpu_torch.diffusion import (DiffusionSchedule, ddim_plan,
                                          forward_noise, make_schedule,
                                          sample_timesteps)
 from mocodad_tpu_torch.models import frames as F
-from mocodad_tpu_torch.models.losses import aggregate, elementwise_loss
+from mocodad_tpu_torch.models.losses import (aggregate, elementwise_loss,
+                                              selects_pose)
 from mocodad_tpu_torch.nn import (STSAE, STSE, STSAEUnet, STSEUnet,
                                   sinusoidal_pos_encoding)
 from mocodad_tpu_torch.ops.pallas_unet import (FoldedDenoiser, denoise,
@@ -84,13 +86,14 @@ class MoCoDADNet(nn.Module):
     """The condition encoder and the main U-Net in one module, named as the
     reference's LightningModule (`condition_encoder`, `model`;
     ref `build_model`, models/mocodad.py:90-126), so a reference state dict
-    loads with `strict=True`."""
+    loads with `strict=True`.  `model` replaces the main U-Net (the latent
+    variant's `make_main_net`, mocodad_tpu/models/mocodad.py:92)."""
 
     def __init__(self, num_coords: int, n_joints: int, embedding_dim: int,
                  dropout: float, strategy: str,
                  conditioning_architecture: Optional[str], h_dim: int,
                  latent_dim: int, channels, n_frames_condition: int,
-                 input_n_frames: int):
+                 input_n_frames: int, model: Optional[nn.Module] = None):
         super().__init__()
         self.condition_encoder = None
         if strategy == 'inject':
@@ -109,10 +112,10 @@ class MoCoDADNet(nn.Module):
                 raise NotImplementedError(
                     f'Conditioning architecture {conditioning_architecture} '
                     'not implemented.')
-        self.model = STSAEUnet(c_in=num_coords, embedding_dim=embedding_dim,
-                               n_frames=input_n_frames, n_joints=n_joints,
-                               dropout=dropout,
-                               inject_condition=(strategy == 'inject'))
+        self.model = model if model is not None else STSAEUnet(
+            c_in=num_coords, embedding_dim=embedding_dim,
+            n_frames=input_n_frames, n_joints=n_joints, dropout=dropout,
+            inject_condition=(strategy == 'inject'))
 
     def encode_condition(self, cond: Optional[torch.Tensor]
                          ) -> Optional[torch.Tensor]:
@@ -133,17 +136,23 @@ class MoCoDADNet(nn.Module):
         pred, _ = self.model(x, t, cond_emb)
         return pred
 
+    def condition(self, cond: Optional[torch.Tensor]
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(conditioning latent, the AE's reconstruction of `cond` or None)
+        with the whole encoder in the net's mode, as training runs it
+        (mocodad_tpu/models/mocodad.py:99-115): E_unet's hidden-state list
+        is no reconstruction."""
+        if self.condition_encoder is None or cond is None:
+            return None, None
+        latent, rec = self.condition_encoder(cond)
+        return latent, (None if isinstance(rec, list) else rec)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cond: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(eps prediction, the AE's reconstruction of `cond` or None)
-        (mocodad_tpu/models/mocodad.py:99-125): E_unet's hidden-state list
-        is no reconstruction."""
-        latent, rec = None, None
-        if self.condition_encoder is not None and cond is not None:
-            latent, rec = self.condition_encoder(cond)
-            if isinstance(rec, list):
-                rec = None
+        (mocodad_tpu/models/mocodad.py:123-125)."""
+        latent, rec = self.condition(cond)
         pred, _ = self.model(x, t, latent)
         return pred, rec
 
@@ -230,6 +239,31 @@ class MoCoDADModel:
         """The denoiser's folded eval-mode constants; refold after the
         weights change."""
         return fold_denoiser(net.model)
+
+    # Overridden by the latent variant's stages (models/mocodad_latent.py):
+    # whether `Trainer` copies `pretrained_model_ckpt_path` in first, and
+    # whether `StreamScorer` serves the model.
+    needs_pretrained = False
+    servable = True
+
+    def window_losses(self, net: MoCoDADNet, data: torch.Tensor,
+                      rng: Optional[torch.Generator] = None,
+                      noise_override=None, folded=None
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """(selected poses or None, per-window loss) of one batch of views:
+        what `run_inference` and `StreamScorer` score a window by; here
+        `generate` with the model's aggregation."""
+        return self.generate(net, data, rng, noise_override=noise_override,
+                             folded=folded)
+
+    def returns_pose(self) -> bool:
+        """Whether `window_losses` gives selected poses."""
+        return selects_pose(str(self.aggregation_strategy))
+
+    def trainable_mask(self, net: MoCoDADNet) -> Dict[str, bool]:
+        """Which parameters train, by name: all of them
+        (mocodad_tpu/training/loop.py:127-129 applies no mask here)."""
+        return {k: True for k, _ in net.named_parameters()}
 
     @staticmethod
     def _masked_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]
@@ -428,10 +462,13 @@ class MoCoDADModel:
 
 
 def build_model(cfg: Config) -> MoCoDADModel:
-    """Model-class dispatch (ref: train_MoCoDAD.py:68); the latent variant
-    is not ported yet."""
+    """Model-class dispatch (ref: train_MoCoDAD.py:68): a config with
+    `diffusion_on_latent` builds the latent variant
+    (`models/mocodad_latent.py`)."""
     if cfg.diffusion_on_latent is not None:
-        raise NotImplementedError('the latent variant is not ported yet')
+        from mocodad_tpu_torch.models.mocodad_latent import \
+            MoCoDADLatentModel
+        return MoCoDADLatentModel(cfg)
     return MoCoDADModel(cfg)
 
 
@@ -448,7 +485,7 @@ def seeded_state(net: MoCoDADNet, seed: int) -> MoCoDADNet:
             if name.endswith('prelu.weight'):
                 p.copy_(0.25 + 0.1 * torch.rand(p.shape, generator=g))
         for m in net.modules():
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 m.running_mean.copy_(
                     0.1 * torch.randn(m.running_mean.shape, generator=g))
                 m.running_var.copy_(

@@ -54,6 +54,33 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                                         self.bias, True, 0.0, self.eps)
 
 
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """`FlaxBatchNorm2d`'s sibling for an (N, C) matrix: flax `nn.BatchNorm`
+    on axis -1 at momentum 0.9 (mocodad_tpu/nn/components.py:109-110), the
+    latent denoiser's.  Train mode normalizes with the batch mean and the
+    biased variance and puts the biased variance into `running_var`; the
+    statistics are float32.  As in flax, the output takes the promoted
+    dtype of the input and the scale, so a float32 input meets
+    bfloat16-cast weights in float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        x = x.to(dt)
+        if not self.training:
+            return nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, w, b, False, 0.0,
+                self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=0, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return nn.functional.batch_norm(x, None, None, w, b, True, 0.0,
+                                        self.eps)
+
+
 def compose_graph_operator(tm: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Fold (time-mix Tm (V, T, T), joint-mix A (T, V, V)) into one
     (T*V, T*V) matrix; row index is the input (t, v) pair, column index the

@@ -18,7 +18,9 @@ latency.  `StreamScorer` gives them with the offline path's semantics:
   batch_size x S fold rows: on a CUDA device through the kernel B1
   (`ops/pallas_unet.denoise`) 9 times per flush at the flagship's 10
   noise steps.  The network is folded once (`model.fold`), so B1's plan is
-  built once;
+  built once.  The latent variant's diffusion stage runs its latent chain
+  (`models/mocodad_latent.py`), which launches no kernel and has nothing to
+  fold; its pretrain stage has no per-window loss and is refused;
 * `finalize_clip` runs the offline scoring chain (eval/harness.py
   clip_frame_scores, shift + gaussian smoothing, view averaging) over the
   clip's window losses.
@@ -182,7 +184,14 @@ class StreamScorer:
                              f'window x its {self.num_transform} views')
 
         self.cfg = cfg
-        self.model = build_model(cfg)       # raises for the latent variant
+        self.model = build_model(cfg)
+        if not self.model.servable:
+            # the latent pretrain stage generates reconstructions with no
+            # per-window loss (mocodad_tpu/serve.py:178-186)
+            raise NotImplementedError(
+                "StreamScorer needs a per-window loss; the latent "
+                "variant's 'pretrain' stage returns reconstructions only "
+                "- serve the 'diffusion' stage (or the base model)")
         self.device = resolve_device(device)
         if net is None:
             net = self.model.build_net()
@@ -190,6 +199,7 @@ class StreamScorer:
                 os.path.join(cfg.ckpt_dir, cfg.load_ckpt),
                 use_ema=cfg.use_ema), strict=True)
         self.net = net.to(self.device).eval()
+        # None for the latent model, which runs no kernel
         self._folded = self.model.fold(self.net)
 
         self.scaler = load_scaler(scaler_artifact_path(
@@ -220,14 +230,14 @@ class StreamScorer:
     def _step(self, data: torch.Tensor, trans: torch.Tensor, batch_idx: int,
               noise_override=None) -> torch.Tensor:
         """One batch's per-window losses on the device: the affine views,
-        then `generate` on the folded network.  `batch_idx` is the flush
+        then `window_losses` on the folded network.  `batch_idx` is the flush
         order of the batch; the draws come from the scorer's generator in
         that order, or from `noise_override` (generate's) when a test
         wraps this method."""
         data = apply_affine_batch(data, self._mats, trans.long())
-        _, loss = self.model.generate(self.net, data, self._rng,
-                                      noise_override=noise_override,
-                                      folded=self._folded)
+        _, loss = self.model.window_losses(self.net, data, self._rng,
+                                           noise_override=noise_override,
+                                           folded=self._folded)
         return loss
 
     def _fetch(self, loss: torch.Tensor

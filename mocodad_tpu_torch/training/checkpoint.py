@@ -15,20 +15,36 @@ package's own checkpoints are flax msgpack train states; `load_state_dict`
 reads one as a nested dict (mocodad_tpu/training/checkpoint.py:55-67),
 without flax, and `is_torch_checkpoint` tells the two formats apart; both
 live in `utils/weights.py` beside the format dispatch and are re-exported
-here under the JAX module's names.
+here under the JAX module's names.  `merge_matching` is the latent
+variant's transfer of a pretrained checkpoint (the reference's
+load_state_dict(strict=False), ref mocodad_latent.py:223-228).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 # the JAX module's names for the format check and the msgpack reader
 from mocodad_tpu_torch.utils.weights import (  # noqa: F401
     is_torch_checkpoint, load_state_dict)
+
+
+def merge_matching(target: Mapping[str, torch.Tensor],
+                   source: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`target` (a state dict) with each entry replaced by `source`'s where
+    both the key and the shape match (mocodad_tpu/training/checkpoint.py:
+    37-52).  `load_state_dict(strict=False)` would raise on a shape
+    mismatch; here the target's tensor stays."""
+    out = dict(target)
+    for k, v in target.items():
+        src = source.get(k)
+        if src is not None and tuple(src.shape) == tuple(v.shape):
+            out[k] = torch.as_tensor(src).to(v.dtype)
+    return out
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any],

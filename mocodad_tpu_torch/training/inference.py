@@ -24,7 +24,6 @@ from mocodad_tpu_torch.data import (PoseWindows, affine_transform_matrices,
                                     make_loader, prefetch, to_device,
                                     transformed_gt_data)
 from mocodad_tpu_torch.device import resolve_device
-from mocodad_tpu_torch.models.losses import selects_pose
 from mocodad_tpu_torch.models.mocodad import (MoCoDADModel, MoCoDADNet,
                                               build_model)
 from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
@@ -47,11 +46,15 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
     (N, C, Tc, V) or None, 'trans', 'meta', 'frames'}.  `with_pose`
     defaults to whether `model_return_value` needs the selected poses.
     `noise_fn(batch_idx, n_rows) -> (x0, zs)`, when given, supplies each
-    batch's gaussians as `generate`'s `noise_override` (n_rows = B*S).
+    batch's gaussians as `generate`'s `noise_override` (n_rows = B*S; the
+    latent diffusion stage takes latent-shaped noise, (B*S, D) and
+    (n_chain_steps, B*S, D)).  Each batch is scored by
+    `model.window_losses`: `generate`, or the latent pretrain stage's
+    reconstruction loss.
     """
     if with_pose is None:
         with_pose = model.model_return_value in ('pose', 'all')
-    if with_pose and not selects_pose(str(model.aggregation_strategy)):
+    if with_pose and not model.returns_pose():
         raise ValueError(
             f"model_return_value '{model.model_return_value}' needs selected "
             f"poses, but aggregation strategy "
@@ -70,8 +73,8 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
     for i, (batch, data, trans) in enumerate(loader):
         data = apply_affine_batch(data, mats, trans.long())
         noise = None if noise_fn is None else noise_fn(i, data.shape[0] * s)
-        sel, loss = model.generate(net, data, rng, noise_override=noise,
-                                   folded=folded)
+        sel, loss = model.window_losses(net, data, rng, noise_override=noise,
+                                        folded=folded)
         pending.append((loss, sel if with_pose else None, batch))
     outs: Dict[str, list] = {k: [] for k in
                              ('loss', 'pose', 'trans', 'meta', 'frames')}
@@ -94,7 +97,9 @@ def restore_and_infer(cfg: Config, device=None,
     `device=None` means CUDA, and raises without it; pass 'cpu' to run on
     the CPU.  The checkpoint at cfg.ckpt_dir/cfg.load_ckpt is a
     reference-named state dict written by `torch.save`, bare or as
-    Lightning's {'state_dict': ...}.  Returns (model, dataset, result) with
+    Lightning's {'state_dict': ...}, or a JAX-package msgpack train state;
+    it holds the whole net of the configured model, either stage of the
+    latent variant included.  Returns (model, dataset, result) with
     `result` as run_inference returns it.
     """
     dev = resolve_device(device)

@@ -15,9 +15,17 @@ Left out of the JAX loop: the device-resident window pool and
 `steps_per_dispatch` (loop.py:159-211, :262-283) only amortize TPU
 dispatch, so their YAML keys (`device_data`, `device_data_cap_gb`,
 `steps_per_dispatch`) are accepted and ignored, as are `use_wandb`
-(metrics go to metrics.csv only), `profile_dir` and `debug_nans`; the
-latent variant's pretrained transfer and `trainable_mask` are not ported
-(`build_model` raises for the latent config).
+(metrics go to metrics.csv only), `profile_dir` and `debug_nans`.
+
+The latent variant trains in two stages.  Stage 'pretrain' monitors the
+validation reconstruction loss (`pretrain_rec_loss`).  Stage 'diffusion'
+starts from `pretrained_model_ckpt_path` (any checkpoint format), whose
+parameters and BatchNorm statistics are copied wherever name and shape
+match (`checkpoint.merge_matching`, loop.py:141-155), and trains the
+denoiser alone: the JAX step zeroes the other parameters' Adam updates
+(loop.py:243-249), and Adam is elementwise, so Adam over the denoiser's
+parameters takes the same steps.  The frozen modules keep train mode, so
+their BatchNorm running statistics move as JAX's mutated `batch_stats` do.
 """
 
 from __future__ import annotations
@@ -38,9 +46,11 @@ from mocodad_tpu_torch.data import (PoseWindows, affine_transform_matrices,
 from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.eval.harness import post_processing_from_config
 from mocodad_tpu_torch.models.mocodad import MoCoDADNet, build_model
-from mocodad_tpu_torch.training.checkpoint import TopKCheckpointManager
+from mocodad_tpu_torch.training.checkpoint import (TopKCheckpointManager,
+                                                   merge_matching)
 from mocodad_tpu_torch.training.ema import ema_init, ema_update
 from mocodad_tpu_torch.training.inference import run_inference
+from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
 
 # (step, batch rows) -> (t (B,), eps (B, C, Tc, V)), the loss's noise_override
 TrainNoiseFn = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -105,17 +115,36 @@ class Trainer:
 
     def init_state(self, steps_per_epoch: int) -> None:
         """A fresh network from `cfg.seed` (the global RNG is left as it
-        was), Adam, the EMA copy and step 0."""
+        was), with the pretrained transfer in the latent diffusion stage;
+        Adam over the trainable parameters (the others stop requiring
+        gradients), the EMA copy and step 0."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.cfg.seed)
             net = self.model.build_net()
+        if self.model.needs_pretrained:
+            self._load_pretrained_into(net)
         self.net = net.to(self.device).train()
-        self.opt = torch.optim.Adam(self.net.parameters(),
-                                    lr=self.cfg.opt_lr, betas=(0.9, 0.999),
-                                    eps=1e-8)
+        mask = self.model.trainable_mask(self.net)
+        for k, p in self.net.named_parameters():
+            p.requires_grad_(mask[k])
+        self.opt = torch.optim.Adam(
+            [p for p in self.net.parameters() if p.requires_grad],
+            lr=self.cfg.opt_lr, betas=(0.9, 0.999), eps=1e-8)
         self.ema = ema_init(self.net) if self.use_ema else None
         self.step = 0
         self.steps_per_epoch = steps_per_epoch
+
+    def _load_pretrained_into(self, net: MoCoDADNet) -> None:
+        """Copy the parameters AND BatchNorm running statistics of
+        `pretrained_model_ckpt_path` into `net` wherever name and shape
+        match (mocodad_tpu/training/loop.py:141-155): without the
+        statistics the frozen encoder would normalize with mean 0, var 1."""
+        path = self.cfg.pretrained_model_ckpt_path
+        if not path:
+            raise ValueError('Pretrained model checkpoint path not specified')
+        src = load_checkpoint_state_dict(path)
+        net.load_state_dict(merge_matching(net.state_dict(), src),
+                            strict=True)
 
     def lr_at(self, step: int) -> float:
         """optax.exponential_decay(opt_lr, steps_per_epoch, 0.99,
@@ -186,8 +215,9 @@ class Trainer:
     @torch.no_grad()
     def validation_metric(self, ds: PoseWindows, epoch: int
                           ) -> Dict[str, float]:
-        """The frame-level AUC on `ds`, generated with the EMA parameters
-        (or the live ones) and the live BatchNorm statistics
+        """The frame-level AUC on `ds`, or in the latent pretrain stage the
+        mean reconstruction loss (`pretrain_rec_loss`), generated with the
+        EMA parameters (or the live ones) and the live BatchNorm statistics
         (mocodad_tpu/training/loop.py:440-445, :584-591).  `run_inference`
         folds the weights it is given, so each epoch's weights are
         refolded; the net is back in train mode, with its live parameters,
@@ -207,6 +237,9 @@ class Trainer:
                 for k, p in net.named_parameters():
                     p.copy_(live[k])
             net.train()
+        metric, _ = monitored_metric_for(self.cfg)
+        if metric == 'pretrain_rec_loss':
+            return {metric: float(res['loss'].mean())}
         auc = post_processing_from_config(res['loss'], res['trans'],
                                           res['meta'], res['frames'],
                                           self.cfg)

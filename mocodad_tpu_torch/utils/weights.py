@@ -3,13 +3,17 @@ and reference (PyTorch Lightning) checkpoints, as the state dict of the
 port's `MoCoDADNet`.
 
 `state_dict_from_jax` is this package's own copy of the export logic in
-`mocodad_tpu/utils/torch_compat.py:237-327`, for the modules of the eval
-slice (the U-Net, its joint mixes and the AE/E condition encoders).  It
-takes the variables tree as nested dicts of NumPy arrays and emits the
-reference key names, e.g.
+`mocodad_tpu/utils/torch_compat.py:237-327`, for every module the JAX
+package builds (the U-Nets with their linear heads, their joint mixes, the
+AE / E / E_unet condition encoders and the latent variant's MLP
+denoiser).  It takes the variables tree as nested dicts of NumPy arrays
+and emits the reference key names, e.g.
 
     model.st_gcnnsp1a.0.gcn.A     model.st_gcnnsd1.1.tcn.0.weight
     model.down1.block.0.weight    condition_encoder.encoder.model_layers.0...
+    model.to_time_dim.weight      denoiser.net.0.0.weight (Linear)
+    denoiser.net.0.1.running_var  denoiser.net.3.weight (the last Linear)
+    denoiser.cond_layers.0.bias
 
 Layout conversions: a dense (in, out) kernel becomes a Linear (out, in)
 weight or a 1x1 Conv2d (out, in, 1, 1) weight; a flax BatchNorm's
@@ -82,16 +86,41 @@ def _export_gcnn(prefix: str, p: Mapping, s: Optional[Mapping],
         out[f'{prefix}.emb_layer.1.bias'] = _t(p['emb_bias'])
 
 
+def _export_denoiser(p: Mapping, s: Mapping,
+                     out: Dict[str, torch.Tensor]) -> None:
+    """The MLP denoiser's w{i}_* / bn{i} / c{i}_* entries
+    (torch_compat.py:281-297)."""
+    i = 0
+    while f'w{i}_kernel' in p:
+        last = f'w{i + 1}_kernel' not in p
+        base = f'denoiser.net.{i}' if last else f'denoiser.net.{i}.0'
+        out[f'{base}.weight'] = _t(np.asarray(p[f'w{i}_kernel']).T)
+        if f'w{i}_bias' in p:
+            out[f'{base}.bias'] = _t(p[f'w{i}_bias'])
+        if not last:
+            _export_bn(f'denoiser.net.{i}.1', p[f'bn{i}'], s.get(f'bn{i}'),
+                       out)
+        out[f'denoiser.cond_layers.{i}.weight'] = _t(
+            np.asarray(p[f'c{i}_kernel']).T)
+        if f'c{i}_bias' in p:
+            out[f'denoiser.cond_layers.{i}.bias'] = _t(p[f'c{i}_bias'])
+        i += 1
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables tree ({'params': ..., 'batch_stats': ...}, nested
-    dicts of arrays) -> reference-named torch state dict of `MoCoDADNet`."""
+    dicts of arrays) -> reference-named torch state dict of `MoCoDADNet`
+    or `MoCoDADLatentNet`."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
     out: Dict[str, torch.Tensor] = {}
     for root, p in params.items():
-        if root not in ('model', 'condition_encoder'):
-            raise ValueError(f'{root!r} is not part of the ported eval slice')
+        if root not in ('model', 'condition_encoder', 'denoiser'):
+            raise ValueError(f'{root!r} is no module of the MoCoDAD nets')
         s = stats.get(root, {})
+        if root == 'denoiser':
+            _export_denoiser(p, s, out)
+            continue
         for name, sub in p.items():
             ss = s.get(name, {}) if isinstance(s, Mapping) else {}
             if name in ('encoder', 'decoder'):
@@ -183,6 +212,24 @@ def _linear_entry(base: str, leaf: str, value: np.ndarray) -> Entry:
     return 'params', (f'{base}_bias',), value
 
 
+def _denoiser_entry(rest: list, value: np.ndarray) -> Entry:
+    """net.{i}[.0].* (Linear), net.{i}.1.* (BatchNorm1d) or
+    cond_layers.{i}.* (torch_compat.py:134-160)."""
+    stack, idx = rest[0], rest[1]
+    if stack == 'cond_layers':
+        return _linear_entry(f'c{idx}', rest[2], value)
+    if stack != 'net':
+        return None
+    if rest[2] in ('weight', 'bias'):          # the last layer, bare Linear
+        return _linear_entry(f'w{idx}', rest[2], value)
+    if rest[2] == '0':
+        return _linear_entry(f'w{idx}', rest[3], value)
+    if rest[2] == '1' and rest[3] in _BN_LEAVES:
+        col, name = _BN_LEAVES[rest[3]]
+        return col, (f'bn{idx}', name), value
+    return None
+
+
 def _map_key(key: str, value: np.ndarray) -> Entry:
     """One reference key -> (collection, flax path, value), or None for a
     key with no flax counterpart."""
@@ -190,6 +237,8 @@ def _map_key(key: str, value: np.ndarray) -> Entry:
     root, rest = parts[0], parts[1:]
     if root == 'model':
         out = _unet_entry(rest, value)
+    elif root == 'denoiser':
+        out = _denoiser_entry(rest, value)
     elif root == 'condition_encoder':
         if rest[0] in ('encoder', 'decoder'):
             out = _gcnn_entry(rest[3:], value)
@@ -207,10 +256,10 @@ def _map_key(key: str, value: np.ndarray) -> Entry:
 
 def variables_from_state_dict(state_dict: Mapping[str, Any]
                               ) -> Dict[str, Dict]:
-    """Reference-named state dict of `MoCoDADNet` -> the JAX package's
-    {'params': ..., 'batch_stats': ...} tree of float32 NumPy arrays.
-    Raises on a key it cannot place (num_batches_tracked has no flax
-    counterpart and is dropped)."""
+    """Reference-named state dict of `MoCoDADNet` or `MoCoDADLatentNet` ->
+    the JAX package's {'params': ..., 'batch_stats': ...} tree of float32
+    NumPy arrays.  Raises on a key it cannot place (num_batches_tracked
+    has no flax counterpart and is dropped)."""
     out: Dict[str, Dict] = {'params': {}, 'batch_stats': {}}
     unmapped = []
     for key, val in state_dict.items():

@@ -85,14 +85,19 @@ def test_generate_draws_from_the_generator(models):
 # the 'bf16' case keeps its id from before bfloat16 was ported: it now
 # holds an eval_dtype the port does not take (the JAX package rejects
 # float16 too, mocodad_tpu/models/mocodad.py:154-156); a sampler other than
-# ddpm or ddim is a ValueError in both packages (:212-215); the latent
-# variant is not ported yet (ROADMAP A3)
+# ddpm or ddim is a ValueError in both packages (:212-215); the 'latent'
+# case keeps its id from before the latent variant was ported: it now holds
+# a latent config with another strategy than inject, a ValueError in both
+# packages (mocodad_tpu/models/mocodad_latent.py:110-112)
 @pytest.mark.parametrize('kw, error', [
     ({'extras': {'eval_dtype': 'float16'}}, NotImplementedError),
     ({'extras': {'sampler': 'euler'}}, ValueError),
-    ({'diffusion_on_latent': True}, NotImplementedError)],
+    ({'diffusion_on_latent': True, 'conditioning_strategy': 'concat'},
+     ValueError)],
     ids=['bf16', 'euler', 'latent'])
 def test_options_outside_the_slice_raise(kw, error):
+    from mocodad_tpu.config import Config as JaxConfig
+    from mocodad_tpu.models import build_model as jax_build_model
     from mocodad_tpu_torch.config import Config
     from mocodad_tpu_torch.models.mocodad import build_model
     from _torch_port import CFG_KW
@@ -101,4 +106,4 @@ def test_options_outside_the_slice_raise(kw, error):
         build_model(cfg)
     if error is ValueError:
         with pytest.raises(error):
-            jax_model(**kw)
+            jax_build_model(JaxConfig(**{**CFG_KW, **kw}))

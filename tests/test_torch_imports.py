@@ -49,6 +49,9 @@ def test_import_leaves_jax_out():
         'import mocodad_tpu_torch.data.convert\n'
         'import mocodad_tpu_torch.tools.convert_checkpoint\n'
         'import mocodad_tpu_torch.tools.perf.probe_serve_latency\n'
+        'import mocodad_tpu_torch.models.mocodad_latent\n'
+        'import mocodad_tpu_torch.viz, mocodad_tpu_torch.viz.report\n'
+        'import mocodad_tpu_torch.viz.vis\n'
         'import eval_MoCoDAD_torch, train_MoCoDAD_torch, chip_smoke\n'
         'import serve_MoCoDAD_torch, predict_MoCoDAD_torch\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
@@ -97,6 +100,27 @@ def test_trainer_raises_without_cuda():
     from mocodad_tpu_torch.training.loop import Trainer
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Trainer(flagship_config())
+
+
+def test_latent_entry_points_raise_without_cuda(tmp_path):
+    """The latent variant's trainer and eval route take no device from
+    anywhere but the caller: without CUDA they raise, as the base
+    model's do."""
+    if torch.cuda.is_available():
+        pytest.skip('CUDA is present: the default device is usable')
+    from mocodad_tpu_torch.config import flagship_config
+    from mocodad_tpu_torch.models.mocodad import build_model
+    from mocodad_tpu_torch.models.mocodad_latent import MoCoDADLatentModel
+    from mocodad_tpu_torch.training.inference import restore_and_infer
+    from mocodad_tpu_torch.training.loop import Trainer
+    for stage in ('pretrain', 'diffusion'):
+        cfg = flagship_config(data_dir=str(tmp_path), ckpt_dir=str(tmp_path),
+                              diffusion_on_latent=True, stage=stage)
+        assert isinstance(build_model(cfg), MoCoDADLatentModel)
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            Trainer(cfg)
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            restore_and_infer(cfg)
 
 
 def test_restore_and_infer_raises_without_cuda(tmp_path):

@@ -6,6 +6,12 @@ metric and top-2 checkpoints).
     python train_MoCoDAD_torch.py -c <config> --resume        # last.ckpt
     python train_MoCoDAD_torch.py -c <config> --device cpu
 
+The latent variant trains in two runs: config/UBnormal/
+mocodad-latent_train.yaml at `stage: pretrain` (monitoring the validation
+reconstruction loss), then the same config at `stage: diffusion`, whose
+`pretrained_model_ckpt_path` names the first run's best_weights.ckpt; the
+second run trains the latent denoiser alone on the frozen encoders.
+
 Checkpoints land in the config's ckpt_dir: last.ckpt, the top-2 by the
 monitored metric (the validation AUC when `validation: true`),
 best_weights.ckpt and topk.json, each a torch.save dict that

@@ -18,7 +18,8 @@ Phases, each printing one line:
                (bound_ms) and the function on the FMA units
                (fma_bound_ms); then B1 at both dtypes at the serve path's
                N = 12,800 (256 window-views x 50 samples), checked against
-               the plain version, timed and bounded;
+               the plain version, timed and bounded, and at a rank's
+               N = 25,600 of two ranks (phases 35, 37);
   5. main      the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
                'best', 5 views, batch 1024, float32) from a seeded
                checkpoint on a synthetic dataset to the frame-level AUC,
@@ -129,10 +130,30 @@ Phases, each printing one line:
                (`StreamScorer` at the diffusion stage over the test
                split's traffic; the pretrain stage refused), latent_cli
                (the train CLI at both stages, the eval and predict CLIs).
+ 34-37. data parallelism (mocodad_tpu_torch/parallel/), each rank a
+               process with one device: dist1 (this process as a group of
+               one rank over NCCL on cuda:0, the f32 agree pass through
+               `run_inference(mesh=...)`, its losses against phase 6's,
+               B1's launches, window-views/s), dist2_shared (two spawned
+               ranks sharing cuda:0 over gloo, each the agree pass over
+               its half of every batch, B1 at N = 25,600, gathered and
+               held against phase 6's losses, and 3 train steps at
+               mocodad_train.yaml's settings, batch 1024, with injected
+               global noise against one process on the card: losses,
+               parameters bit-equal across the ranks and close to one
+               process's; window-views/s and steps/s), dist_cli
+               (eval_MoCoDAD_torch.py alone and joined to a group of one
+               rank through MOCODAD_*: the same AUC; --n-devices one more
+               than the GPUs refused), dist_nccl2 (dist2_shared's checks
+               over NCCL on two cards where two are visible, else
+               `skipped=one_gpu`).
 Then the script's total seconds, one JSON line with each kernel's numbers
-(B1's entries also carry `serve_*` and `n12800_*` keys: the serve path's
-launches and window-views/s, and B1's numbers at N = 12,800; every entry
-`latent_launches`, its count over phases 27-33, 0), the card line, and
+(B1's entries also carry `serve_*`, `n12800_*` and `n25600_*` keys: the
+serve path's launches and window-views/s, and B1's numbers at N = 12,800
+and at a rank's 25,600; every entry `latent_launches`, its count over
+phases 27-33, 0, and its launches on phases 34-37: `dist1_launches`,
+`dist2_launches` (per rank), `dist_cli_launches`, and `dist_nccl2_launches`
+where two cards are visible), the card line, and
 last
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 last line.  Needs one CUDA device; exits non-zero without one.
@@ -164,6 +185,8 @@ from mocodad_tpu_torch.eval.harness import (post_processing,
 from mocodad_tpu_torch.models import frames as F, mocodad as M
 from mocodad_tpu_torch.ops import build, dma_unet as D, grouped_unet as G
 from mocodad_tpu_torch.ops import pallas_unet as P
+from mocodad_tpu_torch.parallel import (make_mesh, maybe_initialize,
+                                        shard_batch, spawn)
 from mocodad_tpu_torch.serve import StreamScorer
 from mocodad_tpu_torch.tools import convert_checkpoint
 from mocodad_tpu_torch.tools.perf import (probe_dma_pipeline,
@@ -874,13 +897,13 @@ SERVE_MALFORMED = ('not json', '[1, 2]', '{"type": "pose", "scene": 1}',
                    '{"type": "end_clip", "clip": 1}')
 
 
-def time_serve_fold_phase(folded, g, peaks, card: str) -> dict:
-    """B1 at the serve path's N = 12,800 at both dtypes: max |diff| against
-    the plain version, ms, the plain version's ms and the bound; returns
-    {kernel: numbers}."""
+def time_fold_phase(folded, g, peaks, card: str, n: int) -> dict:
+    """B1 at N fold rows at both dtypes (the serve path's 12,800; a rank's
+    25,600 of two): max |diff| against the plain version, ms, the plain
+    version's ms and the bound; returns {kernel: numbers}, keyed n<N>_*."""
     _, bf16_peak, tf32_peak, bytes_peak = peaks
-    x, semb = fold_inputs(folded, N_SERVE, g)
-    flops = P.denoiser_flops_per_row(folded) * N_SERVE
+    x, semb = fold_inputs(folded, n, g)
+    flops = P.denoiser_flops_per_row(folded) * n
     out = {}
     for key, kernel, xin, plan, work, peak, io in (
             ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device), 3,
@@ -901,17 +924,17 @@ def time_serve_fold_phase(folded, g, peaks, card: str) -> dict:
             xin, semb, folded, compute_dtype=xin.dtype))
         b_ms, b_by = bound(work * flops, io + plan.blob.numel(), peak,
                            bytes_peak)
-        phase('time', n=N_SERVE, kernel=key, max_abs_err=err, ok=ok,
+        phase('time', n=n, kernel=key, max_abs_err=err, ok=ok,
               kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
               bound_ms=f'{b_ms:.4f}', bound_by=b_by,
               bound_share=f'{b_ms / ms:.4f}', gflop=f'{flops / 1e9:.2f}',
               kernel_tflops=f'{flops / ms / 1e9:.2f}', card=repr(card))
         if not ok:
             raise RuntimeError(f'{key} disagrees with its plain version at '
-                               f'N={N_SERVE}')
-        out[key] = dict(n12800_ms=ms, n12800_plain_ms=plain_ms,
-                        n12800_bound_ms=b_ms, n12800_bound_by=b_by,
-                        n12800_max_abs_err=err)
+                               f'N={n}')
+        out[key] = {f'n{n}_ms': ms, f'n{n}_plain_ms': plain_ms,
+                    f'n{n}_bound_ms': b_ms, f'n{n}_bound_by': b_by,
+                    f'n{n}_max_abs_err': err}
     return out
 
 
@@ -1109,18 +1132,21 @@ CLI_WRAPPER = (
     'runpy.run_path(sys.argv[0], run_name="__main__")\n')
 
 
-def run_clis(*calls, stdin: str = ''):
+def run_clis(*calls, stdin: str = '', envs=None, check: bool = True):
     """Run each (script, *args) as a subprocess, all at once, with `stdin`
-    on its standard input, and wait for every one (600 s at most); raise
-    if any fails.  Every process is stopped on the way out.  Returns their
-    CompletedProcess in order, each with `launches`, the CLI's own launch
-    counts."""
+    on its standard input and `envs[i]` added to the i-th one's
+    environment, and wait for every one (600 s at most); with `check`,
+    raise if any fails.  Every process is stopped on the way out.  Returns
+    their CompletedProcess in order, each with `launches`, the CLI's own
+    launch counts."""
     repo = os.path.dirname(os.path.abspath(__file__))
+    envs = envs or [{}] * len(calls)
     procs = [subprocess.Popen([sys.executable, '-c', CLI_WRAPPER,
                                os.path.join(repo, c[0]), *c[1:]],
                               stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, cwd=repo)
-             for c in calls]
+                              stderr=subprocess.PIPE, text=True, cwd=repo,
+                              env={**os.environ, **e})
+             for c, e in zip(calls, envs)]
     try:
         out = [subprocess.CompletedProcess(p.args, None, *p.communicate(
             stdin, timeout=600)) for p in procs]
@@ -1131,11 +1157,12 @@ def run_clis(*calls, stdin: str = ''):
                 p.wait()
     for c, p, o in zip(calls, procs, out):
         o.returncode = p.returncode
-        if p.returncode != 0:
+        if p.returncode != 0 and check:
             raise RuntimeError(f'{c[0]} exited {p.returncode}: '
                                f'{o.stderr[-2000:]}')
-        o.launches = json.loads([line for line in o.stderr.splitlines()
-                                 if line.startswith('launches ')][-1][9:])
+        counts = [line for line in o.stderr.splitlines()
+                  if line.startswith('launches ')]
+        o.launches = json.loads(counts[-1][9:]) if counts else None
     return out
 
 
@@ -1615,6 +1642,293 @@ def latent_phases(data_dir: str, work: str, poses, card: str) -> dict:
     return launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (mocodad_tpu_torch/parallel/): ranks of one process and
+# one device each, holding W = 1 or 2 against this process alone
+# ---------------------------------------------------------------------------
+
+# each fold row is computed on its own wherever it lands, so the eval
+# losses of W ranks should equal one process's bit for bit; held within
+# 1e-6 of the largest loss
+DIST_EVAL_REL = 1e-6
+# train steps at W = 2 against one process on the card: the BatchNorm
+# statistics and the gradients are summed in another order, so step 1's
+# loss agrees within 1e-5.  Adam's first steps are about lr x sign(g), so
+# an element whose gradient is at rounding level (the biases before a
+# train-mode BatchNorm, whose true gradient is 0, and a few others) steps
+# the other way on one side, and the later losses carry it (step 3 landed
+# 1.6e-5 apart on an NVIDIA H100 80GB HBM3 at 700 W, steps 1-2 0): held as
+# train_agree holds the card against the CPU, the losses within
+# TRAIN_LOSS_RTOL, no parameter further apart than 3 steps each way, the
+# mean |diff| within TRAIN_PARAM_MEAN; the largest |diff| of the
+# parameters not fed to a BatchNorm, over the largest parameter, printed
+DIST_STEP1_RTOL = 1e-5
+DIST_STEPS = 3
+
+
+def dist_eval(model, net, ds, cfg, noise, mesh):
+    """The f32 agree pass as one rank of `mesh`: (result, host seconds,
+    launch counts), the counts set to 0 just before."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_inference(model, net, ds, cfg.batch_size, cfg.seed,
+                        mesh.device, noise_fn=noise, mesh=mesh)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, launch_counts()
+
+
+def rel_to_largest(got: np.ndarray, want: np.ndarray) -> float:
+    if got.shape != want.shape:
+        return float('inf')
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def dist1_phase(model, net, ds, cfg, noise, want: dict, work: str,
+                card: str) -> dict:
+    """Phase 34: this process as a group of one rank over NCCL on cuda:0,
+    the f32 agree pass through `run_inference(mesh=...)`; its losses
+    against the agree pass's.  Returns B1's launch counts."""
+    maybe_initialize('file://' + os.path.join(work, 'dist1'), 1, 0)
+    try:
+        mesh = make_mesh(devices=['cuda:0'])
+        dist_eval(model, net, ds, cfg, noise, mesh)   # NCCL's set-up
+        res, seconds, counts = dist_eval(model, net, ds, cfg, noise, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    n_batches = -(-len(ds) // cfg.batch_size)
+    err = rel_to_largest(res['loss'], want['loss'])
+    ok = mesh.backend == 'nccl' and err <= DIST_EVAL_REL
+    phase('dist1', ranks=1, backend=mesh.backend, device=str(mesh.device),
+          launches=counts['denoiser'], batches=n_batches,
+          max_abs_err=float(np.abs(res['loss'] - want['loss']).max()),
+          max_rel_to_largest=f'{err:.3e}', bound=DIST_EVAL_REL,
+          seconds=f'{seconds:.3f}',
+          window_views_per_s=f'{len(ds) / seconds:.1f}', ok=ok,
+          card=repr(card))
+    if not ok:
+        raise RuntimeError(f'dist1: {mesh.backend}, max |diff| / max {err}')
+    check_main_launches(counts, 'denoiser', n_batches, 'dist1')
+    dist_draws_phase(model, cfg, seconds / n_batches)
+    return counts
+
+
+def dist_draws_phase(model, cfg, batch_s: float) -> None:
+    """What drawing at the global batch's size costs a rank: a batch's
+    (C, Tc*V, B*S) gaussians (x0 and every chain step but t = 1:
+    noise_steps - 1 draws) at the global size, and at a rank's of two,
+    timed on the card, beside the measured seconds of a batch."""
+    c, tcv = model.num_coords, model.n_frames_corrupt * model.n_joints
+    n = cfg.batch_size * model.n_generated_samples
+    draws = model.schedule.noise_steps - 1
+    g = torch.Generator(device='cuda').manual_seed(0)
+    ms = {w: time_ms(lambda: [torch.randn((c, tcv, n // w), generator=g,
+                                          device='cuda')
+                              for _ in range(draws)]) for w in (1, 2)}
+    phase('dist_draws', rows=n, draws_per_batch=draws,
+          mbytes_per_batch=f'{4 * c * tcv * n * draws / 1e6:.1f}',
+          global_ms_per_batch=f'{ms[1]:.4f}',
+          half_ms_per_batch=f'{ms[2]:.4f}',
+          global_share_of_batch=f'{ms[1] / (batch_s * 1e3):.5f}',
+          extra_share_at_2_ranks=f'{(ms[1] - ms[2]) / (batch_s * 1e3):.5f}')
+
+
+def dist_rank(job: dict) -> None:
+    """One spawned rank of dist2_shared / dist_nccl2, in a group that
+    `parallel.spawn` joined: the f32 agree pass over the rank's rows (the
+    weights of the main path's checkpoint, the agree pass's noise) and
+    DIST_STEPS train steps of `job['tcfg']` at the global batch with
+    injected global noise; saves each result, its seconds and the launch
+    counts to job['out']/rank<r>.pt."""
+    mesh = make_mesh(devices=job['devices'])
+    cfg = job['cfg']
+    model = M.MoCoDADModel(with_eval_dtype(cfg, 'float32'))
+    net = model.build_net()
+    net.load_state_dict(load_checkpoint_state_dict(
+        os.path.join(cfg.ckpt_dir, cfg.load_ckpt)), strict=True)
+    net.to(mesh.device).eval()
+    ds = build_dataset(cfg, split=cfg.split)
+    noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
+                         model.n_frames_corrupt, model.n_joints)
+    dist_eval(model, net, ds, cfg, noise, mesh)      # warm-up
+    res, eval_s, counts = dist_eval(model, net, ds, cfg, noise, mesh)
+
+    tcfg = job['tcfg']
+    batches = train_batches(tcfg, build_dataset(tcfg, split='train'),
+                            DIST_STEPS)
+    trainer = Trainer(tcfg, mesh=mesh,
+                      noise_fn=lambda step, rows: job['noise'][step])
+    trainer.init_state(len(batches))
+    losses, step_s = [], []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(*placed(
+            shard_batch(x, mesh), mesh.device))['loss']))
+        step_s.append(time.perf_counter() - t0)
+    torch.save({'loss': res['loss'], 'eval_seconds': eval_s,
+                'launches': counts, 'backend': mesh.backend,
+                'device': str(mesh.device), 'train_loss': losses,
+                'step_seconds': step_s,
+                'params': {k: p.detach().cpu() for k, p in
+                           trainer.net.named_parameters()}},
+               os.path.join(job['out'], f'rank{mesh.rank}.pt'))
+
+
+def dist_train_reference(tcfg, noise) -> tuple:
+    """DIST_STEPS train steps of one process on the card, on the batches
+    and noise the ranks take: (losses, parameters)."""
+    batches = train_batches(tcfg, build_dataset(tcfg, split='train'),
+                            DIST_STEPS)
+    t = Trainer(tcfg, device='cuda', noise_fn=lambda step, rows: noise[step])
+    t.init_state(len(batches))
+    losses = [float(t.train_step(*placed(x, t.device))['loss'])
+              for x in batches]
+    return losses, {k: p.detach().cpu() for k, p in t.net.named_parameters()}
+
+
+def dist2_phase(name: str, devices, cfg, tcfg, want: dict, work: str,
+                card: str) -> list:
+    """Phase 35 (dist2_shared: two ranks on cuda:0 over gloo) and 37
+    (dist_nccl2: on cuda:0 and cuda:1 over NCCL): `dist_rank` spawned on
+    each of `devices`; each rank's gathered eval losses against the agree
+    pass's, its B1 launches, its train losses against one process's, the
+    ranks' parameters against each other (bit for bit) and against one
+    process's.  Returns each rank's launch counts."""
+    out = os.path.join(work, name)
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(7)
+    b = tcfg.batch_size
+    noise = [(torch.from_numpy(rng.integers(1, tcfg.noise_steps, b)),
+              torch.from_numpy(rng.standard_normal((b, 2, 3, 17)).astype(
+                  np.float32))) for _ in range(DIST_STEPS)]
+    t0 = time.perf_counter()
+    code = spawn(dist_rank, (dict(devices=devices, cfg=cfg, tcfg=tcfg,
+                                  noise=noise, out=out),), len(devices),
+                 url='file://' + os.path.join(out, 'rendezvous'),
+                 timeout=600)
+    seconds = time.perf_counter() - t0
+    if code:
+        raise RuntimeError(f'{name}: a rank exited with code {code}')
+    ranks = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
+             for r in range(len(devices))]
+    want_losses, want_params = dist_train_reference(tcfg, noise)
+    n_batches = -(-len(want['loss']) // cfg.batch_size)
+    eval_err = max(rel_to_largest(r['loss'], want['loss']) for r in ranks)
+    rels = [max(abs(r['train_loss'][i] - c) / abs(c) for r in ranks)
+            for i, c in enumerate(want_losses)]
+    same = all(torch.equal(ranks[0]['params'][k], r['params'][k])
+               for r in ranks[1:] for k in want_params)
+    p_max = max(float(p.abs().max()) for p in want_params.values())
+    diffs = {k: (ranks[0]['params'][k] - v).abs()
+             for k, v in want_params.items()}
+    param_max = max(float(d.max()) for d in diffs.values())
+    kept = [d for k, d in diffs.items() if not k.endswith(BN_FED_BIASES)]
+    param_mean = float(sum(d.sum() for d in kept) /
+                       sum(d.numel() for d in kept))
+    kept_rel = max(float(d.max()) for d in kept) / p_max
+    bound_max = 2 * DIST_STEPS * TRAIN_STEP_MAX * tcfg.opt_lr
+    ok = (all(r['backend'] == ('gloo' if len(set(devices)) == 1 else 'nccl')
+              for r in ranks)
+          and eval_err <= DIST_EVAL_REL and rels[0] <= DIST_STEP1_RTOL
+          and max(rels) <= TRAIN_LOSS_RTOL and same
+          and param_max <= bound_max and param_mean <= TRAIN_PARAM_MEAN)
+    n_views = len(want['loss'])
+    eval_s = [r['eval_seconds'] for r in ranks]
+    # a step ends when its slower rank ends it
+    later_s = sum(max(r['step_seconds'][i] for r in ranks)
+                  for i in range(1, DIST_STEPS))
+    phase(name, ranks=len(devices), backend=ranks[0]['backend'],
+          devices=','.join(r['device'] for r in ranks),
+          launches_per_rank=json.dumps([r['launches']['denoiser']
+                                        for r in ranks]),
+          batches=n_batches, fold_rows_per_launch=cfg.batch_size //
+          len(devices) * cfg.n_generated_samples,
+          eval_max_abs_err=max(float(np.abs(r['loss'] - want['loss']).max())
+                               for r in ranks),
+          eval_max_rel_to_largest=f'{eval_err:.3e}', eval_bound=DIST_EVAL_REL,
+          eval_seconds=json.dumps([round(x, 3) for x in eval_s]),
+          window_views_per_s=f'{n_views / max(eval_s):.1f}',
+          train_loss=json.dumps([round(x, 7) for x in ranks[0]['train_loss']]),
+          train_loss_one=json.dumps([round(x, 7) for x in want_losses]),
+          train_loss_rel=json.dumps([float(f'{x:.3e}') for x in rels]),
+          step1_rtol=DIST_STEP1_RTOL, train_loss_rtol=TRAIN_LOSS_RTOL,
+          step_seconds=json.dumps([round(x, 4) for x in
+                                   ranks[0]['step_seconds']]),
+          steps_per_s_after_first=f'{(DIST_STEPS - 1) / later_s:.2f}',
+          params_equal_across_ranks=same,
+          param_max_abs=f'{param_max:.3e}',
+          bound_max=f'{bound_max:.3e}', param_mean_abs=f'{param_mean:.3e}',
+          not_bn_fed_max_rel_to_largest=f'{kept_rel:.3e}',
+          bound_mean=TRAIN_PARAM_MEAN, seconds=f'{seconds:.1f}', ok=ok,
+          card=repr(card))
+    if not ok:
+        raise RuntimeError(f'{name} disagrees with one process')
+    for r, out in enumerate(ranks):
+        check_main_launches(out['launches'], 'denoiser', n_batches,
+                            f'{name} rank {r}')
+    return [r['launches'] for r in ranks]
+
+
+def dist_cli_phase(config: str, work: str, n_batches: int) -> dict:
+    """Phase 36: eval_MoCoDAD_torch.py alone and joined to a group of one
+    rank through the MOCODAD_* variables, side by side: the same AUC, B1's
+    launches in the joined run; then --n-devices one more than the visible
+    GPUs, refused with the JAX package's words.  Returns the joined run's
+    counts."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    alone, joined, refused = run_clis(
+        ('eval_MoCoDAD_torch.py', '-c', config),
+        ('eval_MoCoDAD_torch.py', '-c', config),
+        ('eval_MoCoDAD_torch.py', '-c', config, '--n-devices', str(n + 1)),
+        envs=[{}, {'MOCODAD_COORDINATOR': 'file://' + os.path.join(
+                   work, 'dist_cli'),
+                   'MOCODAD_NUM_PROCESSES': '1', 'MOCODAD_PROCESS_ID': '0'},
+              {}], check=False)
+    seconds = time.perf_counter() - t0
+    for o in (alone, joined):
+        if o.returncode != 0:
+            raise RuntimeError(f'dist_cli: eval exited {o.returncode}: '
+                               f'{o.stderr[-2000:]}')
+    aucs = [float(o.stdout.split('AUC score: ')[-1].split()[0])
+            for o in (alone, joined)]
+    words = f'requested {n + 1} devices, have {n}'
+    ok = (aucs[0] == aucs[1] and joined.launches == alone.launches
+          and 'joined a group as rank 0 of 1' in joined.stderr
+          and refused.returncode != 0 and words in refused.stderr)
+    phase('dist_cli', auc_alone=f'{aucs[0]:.6f}', auc_joined=f'{aucs[1]:.6f}',
+          joined_launches=joined.launches['denoiser'],
+          refused_exit=refused.returncode, refused_words=repr(words),
+          seconds=f'{seconds:.2f}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'dist_cli: AUC {aucs}, launches '
+                           f'{joined.launches}, refusal '
+                           f'{refused.returncode} {refused.stderr[-500:]}')
+    check_main_launches(joined.launches, 'denoiser', n_batches, 'dist_cli')
+    return joined.launches
+
+
+def dist_phases(model, net, ds, cfg, noise, want: dict, tcfg, config: str,
+                work: str, card: str) -> dict:
+    """Phases 34-37; returns each kernel's launches on them."""
+    counts = {'dist1': dist1_phase(model, net, ds, cfg, noise, want, work,
+                                   card)}
+    counts['dist2'] = dist2_phase('dist2_shared', ['cuda:0', 'cuda:0'], cfg,
+                                  tcfg, want, work, card)
+    counts['dist_cli'] = dist_cli_phase(config, work,
+                                        -(-len(ds) // cfg.batch_size))
+    if torch.cuda.device_count() >= 2:
+        counts['dist_nccl2'] = dist2_phase(
+            'dist_nccl2', ['cuda:0', 'cuda:1'], cfg, tcfg, want, work, card)
+    else:
+        phase('dist_nccl2', skipped='one_gpu',
+              count=torch.cuda.device_count())
+    return {k: {f'{p}_launches': (c[k] if isinstance(c, dict)
+                                  else [r[k] for r in c])
+                for p, c in counts.items()} for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1682,7 +1996,10 @@ def main() -> int:
           fma_f32_bound_share=f'{fma_bound_ms / fma_ms:.4f}',
           gflop=f'{flops / 1e9:.2f}', mbytes=f'{n_bytes / 1e6:.2f}',
           kernel_tflops=f'{flops / kernel_ms / 1e9:.2f}', card=repr(card))
-    serve_times = time_serve_fold_phase(folded, g, peaks_for(name), card)
+    serve_times = time_fold_phase(folded, g, peaks_for(name), card, N_SERVE)
+    # a rank's launches when two ranks split a batch (phases 35, 37)
+    shard_times = time_fold_phase(folded, g, peaks_for(name), card,
+                                  N_FOLD // 2)
 
     entries = {}
     work = tempfile.mkdtemp(prefix='chip_smoke_')
@@ -2025,6 +2342,12 @@ def main() -> int:
         latent_counts = latent_phases(data_dir, work, poses, card)
         for k in entries:
             entries[k]['latent_launches'] = latent_counts[k]
+
+        # 34-37. data parallelism: the f32 agree pass and the train steps
+        # on ranks of one process each
+        for k, v in dist_phases(model, net2, ds, cfg, noise, r_kernel, tcfg,
+                                config, work, card).items():
+            entries[k].update(v, **shard_times.get(k, {}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -17,6 +17,14 @@ by torch.save, bare or as Lightning's {'state_dict': ...}, or a checkpoint
 of train_MoCoDAD_torch.py.  The default device is the GPU; the script
 exits with an error when CUDA is absent unless --device cpu is given.
 
+`--n-devices N` (default 1) scores the split on N ranks, one process and
+one GPU each (`--device cpu`: N CPU processes), each rank its block of
+every batch's rows, and exits non-zero if any rank fails; batch_size must
+be a multiple of N.  Under MOCODAD_COORDINATOR / MOCODAD_NUM_PROCESSES /
+MOCODAD_PROCESS_ID, or torchrun's variables, the process joins that group
+as one rank instead.  Rank 0 prints the AUC and writes the files; the AUC
+does not depend on N.
+
 With `eval_dtype: bfloat16` the port computes the function of the JAX
 package's `build_pallas_eval` (the one its bfloat16 kernel computes: the
 condition encoder and each DDPM update in float32, x rounded to bfloat16
@@ -31,23 +39,37 @@ import argparse
 import os
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser(description='MoCoDAD (PyTorch)')
     parser.add_argument('-c', '--config', type=str, required=True)
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
+    parser.add_argument('--n-devices', type=int, default=1,
+                        help='data-parallel ranks, one device each')
     parser.add_argument('--report', action='store_true',
                         help='also write the per-clip score-analysis HTML '
                              'report (viz/report.py) next to the AUC')
-    from mocodad_tpu_torch.config import (add_eval_profile_arg,
-                                          apply_eval_profile,
+    from mocodad_tpu_torch.config import add_eval_profile_arg
+    add_eval_profile_arg(parser)
+    cli = parser.parse_args(argv)
+
+    from mocodad_tpu_torch.ops.pallas_unet import build_main_kernels
+    from mocodad_tpu_torch.parallel import launch
+    return launch(run, (cli,), cli.n_devices, cli.device,
+                  prepare=build_main_kernels if cli.device == 'cuda'
+                  else None)
+
+
+def run(cli):
+    """One rank's (or the only process's) evaluation; returns the AUC."""
+    from mocodad_tpu_torch.config import (apply_eval_profile,
                                           effective_n_generated_samples,
                                           load_config)
-    add_eval_profile_arg(parser)
-    cli = parser.parse_args()
+    from mocodad_tpu_torch.eval.harness import post_processing_from_config
+    from mocodad_tpu_torch.parallel import is_main_process
+
     cfg = load_config(cli.config)
     apply_eval_profile(cfg, cli.eval_profile)
-
-    from mocodad_tpu_torch.eval.harness import post_processing_from_config
+    main = is_main_process()
 
     if cfg.load_tensors:
         # scoring-only replay of cached predictions
@@ -58,6 +80,8 @@ def main():
         pred = t.get('loss', t['prediction'])
         auc = post_processing_from_config(
             pred, t['trans'], t['metadata'], t['frames'], cfg)
+        if not main:
+            return auc
         print(f'AUC score: {auc:.6f}')
         if cli.report:
             _write_report(pred, t['trans'], t['metadata'], t['frames'], cfg,
@@ -68,11 +92,14 @@ def main():
         export_prediction_tensors, restore_and_infer)
     model, ds, res = restore_and_infer(
         cfg, device=cli.device,
+        n_devices=None if cli.n_devices == 1 else cli.n_devices,
         with_pose=None if cfg.save_tensors else False)
-    if cfg.save_tensors:
+    if cfg.save_tensors and main:
         export_prediction_tensors(model, ds, res, cfg)
     auc = post_processing_from_config(res['loss'], res['trans'], res['meta'],
                                       res['frames'], cfg)
+    if not main:
+        return auc
     print(f'AUC score: {auc:.6f}')
     if cli.report:
         _write_report(res['loss'], res['trans'], res['meta'], res['frames'],

@@ -247,7 +247,9 @@ def load_config(path: str, finalize: bool = True) -> Config:
     cfg = from_dict(raw)
     if finalize:
         cfg = init_args(cfg)
-        copy_config_to_ckpt_dir(cfg, path)
+        from mocodad_tpu_torch.parallel.distributed import is_main_process
+        if is_main_process():
+            copy_config_to_ckpt_dir(cfg, path)
     return cfg
 
 

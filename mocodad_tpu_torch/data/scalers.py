@@ -13,6 +13,8 @@ NaNs are treated as missing: ignored during fit, propagated by transform
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -142,7 +144,13 @@ _KINDS = {'robust': RobustScaler, 'zero_one': MinMaxScaler,
 
 
 def save_scaler(scaler, path: str) -> None:
-    np.savez(path, **scaler.state())
+    """Write the scaler whole or not at all (a temporary file, then a
+    rename): the ranks of a data-parallel run each fit the same scaler and
+    save it while others may be reading it."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    with open(tmp, 'wb') as f:
+        np.savez(f, **scaler.state())
+    os.replace(tmp, path)
 
 
 def load_scaler(path: str):

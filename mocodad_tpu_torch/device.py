@@ -3,11 +3,13 @@
 Every entry point takes an explicit `device`.  `None` means the GPU; when
 CUDA is absent the call raises instead of carrying on on the CPU, so a run
 never reports host numbers under the name of the card.  The CPU is used
-only when the caller asks for it (`device='cpu'`), as the tests do.
+only when the caller asks for it (`device='cpu'`), as the tests do.  In a
+data-parallel run each rank drives one device (`rank_device`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -29,3 +31,27 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != 'cpu':
         raise ValueError(f'unsupported device {dev}')
     return dev
+
+
+def rank_device(device: Optional[Union[str, torch.device]] = None,
+                rank: int = 0) -> torch.device:
+    """The device a rank drives: for CUDA the card at the rank's index on
+    its host (LOCAL_RANK, as torchrun and `parallel.launch` set it, else
+    `rank`), made the current device; the CPU for CPU ranks.  Raises as
+    `resolve_device` does."""
+    dev = resolve_device(device)
+    if dev.type == 'cpu':
+        return dev
+    dev = torch.device('cuda', int(os.environ.get('LOCAL_RANK', rank)))
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def check_device_count(n_devices: int, device=None) -> None:
+    """Raise as `resolve_device(device)` does, or when `n_devices` ranks of
+    one GPU each ask for more GPUs than this host shows (the JAX package's
+    `make_mesh` wording); CPU ranks are not counted."""
+    if resolve_device(device).type == 'cuda' and \
+            n_devices > torch.cuda.device_count():
+        raise ValueError(f'requested {n_devices} devices, have '
+                         f'{torch.cuda.device_count()}')

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mocodad_tpu_torch.parallel.distributed import global_rows, local_rows
+
 
 def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor
                      ) -> torch.Tensor:
@@ -53,14 +55,15 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def aggregate(strategy: str, loss_kind: str, xs: torch.Tensor,
               target: torch.Tensor,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None, mesh=None
               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Select a sample / loss per window from S generations.
 
     xs: (S, B, ...); target: (B, ...).  Returns (selected_x, loss);
     selected_x is None for the loss-only strategies.  For 'all', selected_x
     is (B, S, ...) and loss is (B, S).  'random' draws its choice from
-    `generator`.
+    `generator`, on a `mesh` as the rank's block of the global batch's
+    choices.
     """
     s = xs.shape[0]
     losses = per_sample_losses(loss_kind, xs, target)  # (S, B)
@@ -93,7 +96,8 @@ def aggregate(strategy: str, loss_kind: str, xs: torch.Tensor,
     if strategy == 'random':
         if generator is None:
             raise ValueError("aggregation 'random' needs a generator")
-        idx = torch.randint(0, s, (losses.shape[1],), generator=generator,
-                            device=generator.device)
+        idx = local_rows(torch.randint(
+            0, s, (global_rows(losses.shape[1], mesh),), generator=generator,
+            device=generator.device), mesh)
         return _take(xs, idx.to(xs.device)), _take(losses, idx.to(xs.device))
     raise ValueError(f'Unknown aggregation strategy {strategy}')

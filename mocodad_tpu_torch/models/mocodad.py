@@ -37,6 +37,15 @@ accumulation; each step's update is computed in float32 from the
 float32 eps, with z drawn in float32 (:548-557), then rounded back to
 bfloat16; the losses are float32 (:562-565).  The conditioning frames of
 an assembled input are rounded to bfloat16 as they enter the kernel.
+
+Data parallelism (`mesh`, parallel/): a rank holds its block of the
+global batch's rows.  Every random tensor (the frame orders, t, eps, the
+chain's gaussians, the 'random' aggregation's choices) is drawn at the
+global batch's size from the same generator state on every rank, and the
+rank keeps its block (in the fold, b-major, a rank's windows are one
+contiguous run of columns), so W ranks compute what one does.  The
+loss's masked means divide the rank's sum by the global denominator, and
+its metrics are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -60,6 +69,10 @@ from mocodad_tpu_torch.nn import (STSAE, STSE, STSAEUnet, STSEUnet,
                                   sinusoidal_pos_encoding)
 from mocodad_tpu_torch.ops.pallas_unet import (FoldedDenoiser, denoise,
                                                fold_denoiser)
+from mocodad_tpu_torch.parallel.distributed import (all_reduce_sum,
+                                                    global_rows,
+                                                    is_distributed,
+                                                    local_rows)
 
 EVAL_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -223,6 +236,13 @@ class MoCoDADModel:
         return F.random_order(generator, batch, self.n_frames,
                               self.n_frames_condition, device=device)
 
+    def rank_frame_order(self, generator: Optional[torch.Generator],
+                         rows: int, device: torch.device, mesh):
+        """`frame_order` for the rank's `rows` of a global batch on `mesh`:
+        drawn for the global batch, the rank's block kept."""
+        order = self.frame_order(generator, global_rows(rows, mesh), device)
+        return order if order.dim() == 1 else local_rows(order, mesh)
+
     def build_net(self) -> MoCoDADNet:
         cfg = self.cfg
         return MoCoDADNet(
@@ -248,13 +268,13 @@ class MoCoDADModel:
 
     def window_losses(self, net: MoCoDADNet, data: torch.Tensor,
                       rng: Optional[torch.Generator] = None,
-                      noise_override=None, folded=None
+                      noise_override=None, folded=None, mesh=None
                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(selected poses or None, per-window loss) of one batch of views:
         what `run_inference` and `StreamScorer` score a window by; here
         `generate` with the model's aggregation."""
         return self.generate(net, data, rng, noise_override=noise_override,
-                             folded=folded)
+                             folded=folded, mesh=mesh)
 
     def returns_pose(self) -> bool:
         """Whether `window_losses` gives selected poses."""
@@ -266,21 +286,50 @@ class MoCoDADModel:
         return {k: True for k, _ in net.named_parameters()}
 
     @staticmethod
-    def _masked_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]
-                     ) -> torch.Tensor:
+    def _masked_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                     total: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Mean over all elements, each sample weighted by its mask entry
-        (mocodad_tpu/models/mocodad.py:262-274)."""
+        (mocodad_tpu/models/mocodad.py:262-274).  `total`, on a mesh, is
+        the global batch's sum of weights (`_global_weight`): the rank's
+        weighted sum over the global denominator, its share of the global
+        mean."""
+        per_sample = max(1, int(np.prod(x.shape[1:])))
+        if total is not None:
+            if sample_mask is not None:
+                x = x * sample_mask.reshape((-1,) + (1,) * (x.ndim - 1))
+            return x.sum() / (total * per_sample)
         if sample_mask is None:
             return x.mean()
         m = sample_mask.reshape((-1,) + (1,) * (x.ndim - 1))
-        per_sample = max(1, int(np.prod(x.shape[1:])))
         return (x * m).sum() / (sample_mask.sum() * per_sample)
+
+    @staticmethod
+    def _global_weight(sample_mask: Optional[torch.Tensor], rows: int,
+                       device: torch.device, mesh) -> Optional[torch.Tensor]:
+        """The global batch's sum of mask weights (its row count without a
+        mask) on a mesh, for `_masked_mean`; None off a mesh."""
+        if not is_distributed(mesh):
+            return None
+        w = (sample_mask.sum().float().reshape(1) if sample_mask is not None
+             else torch.full((1,), float(rows), device=device))
+        return all_reduce_sum(w, mesh)[0]
+
+    @staticmethod
+    def _global_metrics(metrics: Dict[str, torch.Tensor], mesh
+                        ) -> Dict[str, torch.Tensor]:
+        """Each metric summed over the ranks (each rank's is its share of
+        the global mean): the global values, the same on every rank."""
+        if not is_distributed(mesh):
+            return metrics
+        total = all_reduce_sum(torch.stack(list(metrics.values())), mesh)
+        return dict(zip(metrics, total))
 
     def loss(self, net: MoCoDADNet, data: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              sample_mask: Optional[torch.Tensor] = None,
              noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
-             = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             = None, mesh=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Noise-prediction loss plus the AE reconstruction term, on `net`
         in its current mode (mocodad_tpu/models/mocodad.py:276-368).
 
@@ -290,23 +339,33 @@ class MoCoDADModel:
         update in place on `net` (JAX returns them as `mutated`).  Returns
         (loss, metrics) with metrics 'loss_noise', 'loss_recons' (AE only)
         and 'loss', detached.
+
+        On a `mesh`, data and sample_mask are the rank's rows of the
+        global batch, `noise_override` is global, the draws are the
+        global batch's, the loss is the rank's share of the global loss
+        (the ranks' gradients sum to the global gradient) and the metrics
+        are global.
         """
         b = data.shape[0]
-        schedule = self.tables(data.device)[1]
-        order = self.frame_order(generator, b, data.device)
+        dev = data.device
+        schedule = self.tables(dev)[1]
+        order = self.rank_frame_order(generator, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
         inject_cond = cond_data if self.strategy == 'inject' else None
         if noise_override is not None:
-            t, eps = noise_override
-            t = torch.as_tensor(t, device=data.device).long()
-            eps = torch.as_tensor(eps, device=data.device,
-                                  dtype=corrupt_data.dtype)
+            t, eps = (local_rows(torch.as_tensor(a), mesh)
+                      for a in noise_override)
+            t = t.to(dev).long()
+            eps = eps.to(dev, corrupt_data.dtype)
         else:
-            t = sample_timesteps(b, self.schedule.noise_steps, generator)
-            eps = None
-        x_t, noise = forward_noise(schedule, corrupt_data, t, eps=eps,
-                                   generator=generator)
+            bg = global_rows(b, mesh)
+            t = local_rows(sample_timesteps(bg, self.schedule.noise_steps,
+                                            generator), mesh)
+            eps = local_rows(torch.randn(
+                (bg,) + tuple(corrupt_data.shape[1:]), generator=generator,
+                device=dev, dtype=corrupt_data.dtype), mesh)
+        x_t, noise = forward_noise(schedule, corrupt_data, t, eps=eps)
         x_in = F.assemble_input(self.strategy, cond_data, x_t, order,
                                 self.n_frames_condition)
         dt = self.train_dtype if net.training else torch.float32
@@ -325,17 +384,18 @@ class MoCoDADModel:
             rec = None if rec is None else rec.float()
         pred = F.extract_corrupt(self.strategy, pred, order,
                                  self.n_frames_condition)
+        total = self._global_weight(sample_mask, b, dev, mesh)
         loss_noise = self._masked_mean(
-            elementwise_loss(self.loss_kind, pred, noise), sample_mask)
+            elementwise_loss(self.loss_kind, pred, noise), sample_mask, total)
         metrics = {'loss_noise': loss_noise.detach()}
         loss = loss_noise
         if rec is not None:
             loss_rec = self._masked_mean(torch.square(rec - cond_data),
-                                         sample_mask)
+                                         sample_mask, total)
             loss = loss_noise + self.rec_weight * loss_rec
             metrics['loss_recons'] = loss_rec.detach()
         metrics['loss'] = loss.detach()
-        return loss, metrics
+        return loss, self._global_metrics(metrics, mesh)
 
     def chain_steps(self) -> Tuple[np.ndarray, Optional[tuple]]:
         """The chain's timesteps, descending, and for DDIM its per-step
@@ -352,7 +412,7 @@ class MoCoDADModel:
                  n_samples: Optional[int] = None,
                  noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
                  = None,
-                 folded: Optional[FoldedDenoiser] = None
+                 folded: Optional[FoldedDenoiser] = None, mesh=None
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """Sample S futures per window and aggregate
         (ref `forward`, models/mocodad.py:129-184).
@@ -372,7 +432,9 @@ class MoCoDADModel:
         with the JAX package.  At bfloat16 x0 is rounded to bfloat16 (JAX
         draws it in bfloat16) and the per-step noise stays float32.
         `folded` is `self.fold(net)`, passed in by callers that generate
-        many batches with one set of weights.
+        many batches with one set of weights.  On a `mesh`, data is the
+        rank's rows of the global batch and `noise_override` is global
+        (its rows the global fold's); the rank's windows are scored.
         """
         aggr = aggr_strategy or self.aggregation_strategy
         s = n_samples or self.n_generated_samples
@@ -384,10 +446,11 @@ class MoCoDADModel:
             raise ValueError('generate needs a torch.Generator (rng) unless '
                              'noise_override is given')
         n_cond = self.n_frames_condition
-        order = self.frame_order(rng, b, dev)
+        order = self.rank_frame_order(rng, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order, n_cond)
         c, tc, v = self.num_coords, self.n_frames_corrupt, self.n_joints
-        n = b * s
+        n, bg = b * s, global_rows(b, mesh)
+        ng = bg * s
         dt = self.eval_dtype
         # (E, S*B), b-major fold: row = b*S + s
         cond_emb = net.encode_condition(
@@ -405,22 +468,29 @@ class MoCoDADModel:
         antithetic = self.antithetic and s > 1 and noise_override is None
 
         def draw() -> torch.Tensor:
-            # (C, Tc*V, N) float32 gaussians
+            # (C, Tc*V, N) float32 gaussians: the rank's columns of the
+            # global fold's
             if not antithetic:
-                return torch.randn((c, tc * v, n), generator=rng, device=dev)
-            half = torch.randn((b, (s + 1) // 2, c, tc * v), generator=rng,
-                               device=dev)
+                return local_rows(torch.randn((c, tc * v, ng), generator=rng,
+                                              device=dev), mesh, dim=2)
+            half = local_rows(torch.randn((bg, (s + 1) // 2, c, tc * v),
+                                          generator=rng, device=dev), mesh)
             return F.to_ctn(_mirror_fold(half, s))
+
+        def given(a) -> torch.Tensor:
+            # a global (N, C, Tc, V) draw -> the rank's (C, Tc*V, N)
+            return F.to_ctn(local_rows(torch.as_tensor(a), mesh).to(
+                dev, torch.float32))
 
         if noise_override is not None:
             x0, zs = noise_override
-            if tuple(x0.shape) != (n, c, tc, v) or \
-                    tuple(zs.shape) != (len(ts), n, c, tc, v):
+            if tuple(x0.shape) != (ng, c, tc, v) or \
+                    tuple(zs.shape) != (len(ts), ng, c, tc, v):
                 raise ValueError(
-                    f'noise_override must be ({n}, {c}, {tc}, {v}) and '
-                    f'({len(ts)}, {n}, {c}, {tc}, {v}); got '
+                    f'noise_override must be ({ng}, {c}, {tc}, {v}) and '
+                    f'({len(ts)}, {ng}, {c}, {tc}, {v}); got '
                     f'{tuple(x0.shape)} and {tuple(zs.shape)}')
-            x = F.to_ctn(torch.as_tensor(x0).to(dev, torch.float32))
+            x = given(x0)
         else:
             x = draw()
         x = x.to(dt)
@@ -428,8 +498,7 @@ class MoCoDADModel:
         def noise(i: int) -> torch.Tensor:
             if noise_override is None:
                 return draw()
-            return F.to_ctn(torch.as_tensor(noise_override[1][i]).to(
-                dev, torch.float32))
+            return given(noise_override[1][i])
 
         for i, t in enumerate(ts.tolist()):
             t_emb = sinusoidal_pos_encoding(
@@ -458,7 +527,7 @@ class MoCoDADModel:
         # (C, Tc*V, B*S) -> (S, B, C, Tc, V) for aggregation
         xs = x.float().reshape(c, tc, v, b, s).permute(4, 3, 0, 1, 2)
         return aggregate(aggr, self.loss_kind, xs, corrupt_data,
-                         generator=rng)
+                         generator=rng, mesh=mesh)
 
 
 def build_model(cfg: Config) -> MoCoDADModel:

@@ -18,6 +18,11 @@ pose-space STSAEUnet that B1 computes, and its latent chain is an MLP.
 base model does (:84-97): the net's parameters cast to bfloat16 inside the
 differentiated graph, the noising at the float32 coefficients, the pretrain
 target the original float32 window.
+
+On a data-parallel `mesh` both stages draw as the base model does: t,
+eps and the latent chain's gaussians at the global batch's size, each
+rank keeping its block of rows, the masked means over the global
+denominator, the metrics summed over the ranks.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from mocodad_tpu_torch.models.losses import aggregate, elementwise_loss
 from mocodad_tpu_torch.models.mocodad import (MoCoDADModel, MoCoDADNet,
                                               _mirror_fold)
 from mocodad_tpu_torch.nn import Denoiser, STSAEUnet, STSEUnet
+from mocodad_tpu_torch.parallel.distributed import global_rows, local_rows
 
 # the reference passes a constant t = -1 through the U-Net in both stages
 # (mocodad_tpu/models/mocodad_latent.py:25-27)
@@ -164,7 +170,8 @@ class MoCoDADLatentModel(MoCoDADModel):
              generator: Optional[torch.Generator] = None,
              sample_mask: Optional[torch.Tensor] = None,
              noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
-             = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             = None, mesh=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The stage's loss on `net` in its current mode (:169-239).
 
         Stage 'pretrain': the reconstruction loss of the corrupted frames
@@ -172,21 +179,26 @@ class MoCoDADLatentModel(MoCoDADModel):
         stage 'diffusion': the latent noise-prediction loss
         ('loss_noise').  `noise_override = (t (B,), eps (B,
         latent_embedding_dim))` replaces the draws of t and the latent
-        noise (pretrain draws t and eps too, and uses neither)."""
+        noise (pretrain draws t and eps too, and uses neither).  `mesh` as
+        for `MoCoDADModel.loss`."""
         b = data.shape[0]
         dev = data.device
         schedule = self.tables(dev)[1]
-        order = self.frame_order(generator, b, dev)
+        order = self.rank_frame_order(generator, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
         if noise_override is not None:
-            t, eps = noise_override
-            t = torch.as_tensor(t, device=dev).long()
-            eps = torch.as_tensor(eps, device=dev, dtype=torch.float32)
+            t, eps = (local_rows(torch.as_tensor(a), mesh)
+                      for a in noise_override)
+            t = t.to(dev).long()
+            eps = eps.to(dev, torch.float32)
         else:
-            t = sample_timesteps(b, self.schedule.noise_steps, generator)
-            eps = torch.randn((b, self.latent_embedding_dim),
-                              generator=generator, device=dev)
+            bg = global_rows(b, mesh)
+            t = local_rows(sample_timesteps(bg, self.schedule.noise_steps,
+                                            generator), mesh)
+            eps = local_rows(torch.randn((bg, self.latent_embedding_dim),
+                                         generator=generator, device=dev),
+                             mesh)
         a_hat = schedule.alpha_hat[t]
         args = (t, eps, torch.sqrt(a_hat), torch.sqrt(1.0 - a_hat))
         dt = self.train_dtype if net.training else torch.float32
@@ -201,19 +213,21 @@ class MoCoDADLatentModel(MoCoDADModel):
             if self.stage != 'diffusion':
                 # the target is the original float32 window (:213-218)
                 target = corrupt_data
+        total = self._global_weight(sample_mask, b, dev, mesh)
         loss = self._masked_mean(
-            elementwise_loss(self.loss_kind, pred, target), sample_mask)
+            elementwise_loss(self.loss_kind, pred, target), sample_mask,
+            total)
         if self.stage == 'diffusion':
             metrics = {'loss_noise': loss.detach()}
         else:
             metrics = {'loss_unet': loss.detach()}
             if rec is not None:
                 loss_rec = self._masked_mean(torch.square(rec - cond_data),
-                                             sample_mask)
+                                             sample_mask, total)
                 loss = loss + self.rec_weight * loss_rec
                 metrics['loss_recons'] = loss_rec.detach()
         metrics['loss'] = loss.detach()
-        return loss, metrics
+        return loss, self._global_metrics(metrics, mesh)
 
     # -- generation ---------------------------------------------------------
 
@@ -223,7 +237,7 @@ class MoCoDADLatentModel(MoCoDADModel):
                  aggr_strategy: Optional[str] = None,
                  n_samples: Optional[int] = None,
                  noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                 = None, folded=None
+                 = None, folded=None, mesh=None
                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         """(mocodad_latent.py:241-338)
 
@@ -234,12 +248,13 @@ class MoCoDADLatentModel(MoCoDADModel):
         `noise_override = (z0 (S*B, D), zs (n_chain_steps, S*B, D))`
         replaces the gaussian draws (and turns antithetic draws off).
         `rng` draws the rest, 'random' aggregation included.  Float32
-        throughout, whatever `eval_dtype` says; `folded` is unused.
+        throughout, whatever `eval_dtype` says; `folded` is unused.  On a
+        `mesh`, as `MoCoDADModel.generate`.
         """
         aggr = aggr_strategy or self.aggregation_strategy
         s = n_samples or self.n_generated_samples
         b, dev = data.shape[0], data.device
-        order = self.frame_order(rng, b, dev)
+        order = self.rank_frame_order(rng, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
         cond_emb = net.encode_condition(cond_data)
@@ -250,33 +265,38 @@ class MoCoDADLatentModel(MoCoDADModel):
                              'noise_override is given')
         latent = net.encode_input(corrupt_data, cond_emb)
         d, n = self.latent_embedding_dim, s * b
+        bg = global_rows(b, mesh)
+        ng = bg * s
         emb_tiled = cond_emb.repeat_interleave(s, dim=0)
         ts, ddim = self.chain_steps()
         antithetic = self.antithetic and s > 1 and noise_override is None
 
         def draw() -> torch.Tensor:
             if not antithetic:
-                return torch.randn((n, d), generator=rng, device=dev)
-            return _mirror_fold(torch.randn((b, (s + 1) // 2, d),
-                                            generator=rng, device=dev), s)
+                return local_rows(torch.randn((ng, d), generator=rng,
+                                              device=dev), mesh)
+            return _mirror_fold(local_rows(torch.randn(
+                (bg, (s + 1) // 2, d), generator=rng, device=dev), mesh), s)
+
+        def given(a) -> torch.Tensor:
+            return local_rows(torch.as_tensor(a), mesh).to(dev, torch.float32)
 
         if noise_override is not None:
             z0, zs = noise_override
-            if tuple(z0.shape) != (n, d) or \
-                    tuple(zs.shape) != (len(ts), n, d):
+            if tuple(z0.shape) != (ng, d) or \
+                    tuple(zs.shape) != (len(ts), ng, d):
                 raise ValueError(
-                    f'noise_override must be ({n}, {d}) and '
-                    f'({len(ts)}, {n}, {d}); got {tuple(z0.shape)} and '
+                    f'noise_override must be ({ng}, {d}) and '
+                    f'({len(ts)}, {ng}, {d}); got {tuple(z0.shape)} and '
                     f'{tuple(zs.shape)}')
-            z = torch.as_tensor(z0).to(dev, torch.float32)
+            z = given(z0)
         else:
             z = draw()
 
         def noise(i: int) -> torch.Tensor:
             if noise_override is None:
                 return draw()
-            return torch.as_tensor(noise_override[1][i]).to(dev,
-                                                            torch.float32)
+            return given(noise_override[1][i])
 
         for i, t in enumerate(ts.tolist()):
             tb = torch.full((n,), t, dtype=torch.long, device=dev)
@@ -292,18 +312,20 @@ class MoCoDADLatentModel(MoCoDADModel):
                 if t > 1:
                     z = z + c3 * noise(i)
         zs = z.reshape(b, s, d).permute(1, 0, 2)
-        return aggregate(aggr, self.loss_kind, zs, latent, generator=rng)
+        return aggregate(aggr, self.loss_kind, zs, latent, generator=rng,
+                         mesh=mesh)
 
     def window_losses(self, net: MoCoDADLatentNet, data: torch.Tensor,
                       rng: Optional[torch.Generator] = None,
-                      noise_override=None, folded=None
+                      noise_override=None, folded=None, mesh=None
                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """Stage 'diffusion': `generate`'s.  Stage 'pretrain':
         `reconstruction_losses`, as the JAX eval step scores it
         (mocodad_tpu/training/loop.py:295-305); no noise is drawn."""
         if self.stage == 'pretrain':
-            return self.reconstruction_losses(net, data, rng)
-        return self.generate(net, data, rng, noise_override=noise_override)
+            return self.reconstruction_losses(net, data, rng, mesh)
+        return self.generate(net, data, rng, noise_override=noise_override,
+                             mesh=mesh)
 
     def returns_pose(self) -> bool:
         """The pretrain stage's reconstruction is its pose, whatever the
@@ -313,13 +335,14 @@ class MoCoDADLatentModel(MoCoDADModel):
     @torch.no_grad()
     def reconstruction_losses(self, net: MoCoDADLatentNet,
                               data: torch.Tensor,
-                              rng: Optional[torch.Generator] = None
+                              rng: Optional[torch.Generator] = None,
+                              mesh=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stage 'pretrain''s eval route: (reconstruction, per-window mean of
         the elementwise loss against the corrupted frames)
         (mocodad_tpu/training/loop.py:295-305)."""
-        order = self.frame_order(rng, data.shape[0], data.device)
+        order = self.rank_frame_order(rng, data.shape[0], data.device, mesh)
         _, corrupt = F.select_frames(data, order, self.n_frames_condition)
-        pose, _ = self.generate(net, data, rng)
+        pose, _ = self.generate(net, data, rng, mesh=mesh)
         per = elementwise_loss(self.loss_kind, pose, corrupt)
         return pose, per.reshape(per.shape[0], -1).mean(dim=-1)

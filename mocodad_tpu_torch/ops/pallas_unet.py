@@ -1411,6 +1411,14 @@ DENOISER_BF16 = TensorCoreDenoiserKernel()
 DENOISER_BF16_FMA = DenoiserKernel(torch.bfloat16)
 
 
+def build_main_kernels() -> None:
+    """Compile B1's two kernels (one nvcc each, started together) unless
+    their builds exist: a launcher calls this once before it starts the
+    ranks that load them."""
+    from mocodad_tpu_torch.ops.build import build_all
+    build_all([DENOISER.source, DENOISER_BF16.source])
+
+
 def denoise(x_ctn: torch.Tensor, silu_emb_en: torch.Tensor,
             folded: FoldedDenoiser) -> torch.Tensor:
     """eps for a (C_in, T*V, N) fold, computed at x_ctn's dtype (float32,

@@ -8,6 +8,12 @@ copied to the device by a producer thread one or two batches ahead
 (`data/prefetch.py`, as JAX `loop.py:379-391`), and results stay on the
 device until the pass ends, so the host does not wait on the card batch
 by batch.
+
+On a data-parallel `mesh` (parallel/), every rank's loader yields the same
+global batches; each rank scores its block of rows (B1 at (B/W)*S fold
+rows on the card) and at the end of the pass, not batch by batch, the
+losses (and poses) are gathered into global order on every rank.
+`restore_and_infer` is each rank's eval and predict path.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from mocodad_tpu_torch.data import (PoseWindows, affine_transform_matrices,
                                     apply_affine_batch, build_dataset,
                                     make_loader, prefetch, to_device,
                                     transformed_gt_data)
-from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.models.mocodad import (MoCoDADModel, MoCoDADNet,
                                               build_model)
+from mocodad_tpu_torch.parallel import (all_gather_rows, global_rows,
+                                        is_distributed, is_main_process,
+                                        make_mesh, shard_batch)
 from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
 
 # Separates the eval generator's stream from a training stream seeded with
@@ -39,7 +47,8 @@ NoiseFn = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
                   batch_size: int, seed: int, device: torch.device,
                   with_pose: Optional[bool] = None,
-                  noise_fn: Optional[NoiseFn] = None) -> Dict[str, Any]:
+                  noise_fn: Optional[NoiseFn] = None,
+                  mesh=None) -> Dict[str, Any]:
     """Run generation over a dataset once.
 
     Returns host arrays with padding stripped: {'loss': (N,), 'pose':
@@ -51,6 +60,10 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
     (n_chain_steps, B*S, D)).  Each batch is scored by
     `model.window_losses`: `generate`, or the latent pretrain stage's
     reconstruction loss.
+
+    On a `mesh`, `device` is the rank's, `noise_fn` gives the global
+    batch's gaussians (n_rows = global B*S) and every rank returns the
+    whole pass's results.
     """
     if with_pose is None:
         with_pose = model.model_return_value in ('pose', 'all')
@@ -66,16 +79,31 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
         (int(seed) << 24) ^ EVAL_DOMAIN_TAG)
     s = model.n_generated_samples
     keep = ('mask', 'trans', 'meta', 'frames')
-    loader = prefetch(make_loader(ds, batch_size), place=lambda b: (
-        {k: b[k] for k in keep}, to_device(b['data'], device),
-        to_device(b['trans'], device)))
+
+    def place(b):
+        local = shard_batch({k: b[k] for k in ('data', 'trans')}, mesh)
+        return ({k: b[k] for k in keep}, to_device(local['data'], device),
+                to_device(local['trans'], device))
+
     pending = []
-    for i, (batch, data, trans) in enumerate(loader):
+    for i, (batch, data, trans) in enumerate(prefetch(
+            make_loader(ds, batch_size), place=place)):
         data = apply_affine_batch(data, mats, trans.long())
-        noise = None if noise_fn is None else noise_fn(i, data.shape[0] * s)
+        noise = None if noise_fn is None else noise_fn(
+            i, global_rows(data.shape[0], mesh) * s)
         sel, loss = model.window_losses(net, data, rng, noise_override=noise,
-                                        folded=folded)
+                                        folded=folded, mesh=mesh)
         pending.append((loss, sel if with_pose else None, batch))
+    if pending and is_distributed(mesh):
+        # one gather per pass: (batches, rows of a rank, ...) -> every
+        # rank's rows side by side, the global batch's order
+        losses = all_gather_rows(torch.stack([p[0] for p in pending]), mesh,
+                                 dim=1)
+        poses = [None] * len(pending)
+        if with_pose:
+            poses = all_gather_rows(torch.stack([p[1] for p in pending]),
+                                    mesh, dim=1)
+        pending = [(l, p, b[2]) for l, p, b in zip(losses, poses, pending)]
     outs: Dict[str, list] = {k: [] for k in
                              ('loss', 'pose', 'trans', 'meta', 'frames')}
     for loss, pose, batch in pending:
@@ -89,24 +117,31 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
 
 
 def restore_and_infer(cfg: Config, device=None,
+                      n_devices: Optional[int] = None,
                       with_pose: Optional[bool] = None,
                       noise_fn: Optional[NoiseFn] = None):
     """Build the split's dataset, restore the configured checkpoint and
     run generation over the split (ref eval_MoCoDAD.py:32-38).
 
     `device=None` means CUDA, and raises without it; pass 'cpu' to run on
-    the CPU.  The checkpoint at cfg.ckpt_dir/cfg.load_ckpt is a
-    reference-named state dict written by `torch.save`, bare or as
+    the CPU.  In a process group (or with `n_devices`, through
+    `parallel.make_mesh`) this process is one rank of the pass, and every
+    rank returns the whole result.  The checkpoint at
+    cfg.ckpt_dir/cfg.load_ckpt is a reference-named state dict written by `torch.save`, bare or as
     Lightning's {'state_dict': ...}, or a JAX-package msgpack train state;
     it holds the whole net of the configured model, either stage of the
     latent variant included.  Returns (model, dataset, result) with
     `result` as run_inference returns it.
     """
-    dev = resolve_device(device)
-    print('Loading data and creating loaders.....')
+    mesh = make_mesh(n_devices, device=device)
+    dev = mesh.device
+    main = is_main_process()
+    if main:
+        print('Loading data and creating loaders.....')
     ds = build_dataset(cfg, split=cfg.split)
-    print(f'{cfg.split} windows: {ds.num_samples} '
-          f'(x{ds.num_transform} transforms)')
+    if main:
+        print(f'{cfg.split} windows: {ds.num_samples} '
+              f'(x{ds.num_transform} transforms)')
     model = build_model(cfg)
     net = model.build_net()
     sd = load_checkpoint_state_dict(os.path.join(cfg.ckpt_dir, cfg.load_ckpt),
@@ -114,7 +149,7 @@ def restore_and_infer(cfg: Config, device=None,
     net.load_state_dict(sd, strict=True)
     net.to(dev).eval()
     res = run_inference(model, net, ds, cfg.batch_size, cfg.seed, dev,
-                        with_pose=with_pose, noise_fn=noise_fn)
+                        with_pose=with_pose, noise_fn=noise_fn, mesh=mesh)
     return model, ds, res
 
 

@@ -17,6 +17,18 @@ dispatch, so their YAML keys (`device_data`, `device_data_cap_gb`,
 `steps_per_dispatch`) are accepted and ignored, as are `use_wandb`
 (metrics go to metrics.csv only), `profile_dir` and `debug_nans`.
 
+Data parallelism (`mesh`, parallel/): each rank is a process with its
+own device; every rank's loader yields the same seeded global batch and
+the rank keeps its block of rows (`shard_batch`).  The step draws the
+global batch's noise and keeps its rows, the BatchNorms take global
+statistics (`nn.stsgcn.sync_batch_norms`), the loss is the rank's share
+of the global mean, and the gradients are summed over the ranks in one
+collective before Adam, so the parameters, Adam's moments and the EMA
+stay the same on every rank (rank 0's are broadcast after init and
+restore).  Validation scores each rank's rows and gathers them.  Rank 0
+alone writes metrics.csv and the checkpoints and prints the epoch lines
+(mocodad_tpu/training/loop.py:520-525, :611).
+
 The latent variant trains in two stages.  Stage 'pretrain' monitors the
 validation reconstruction loss (`pretrain_rec_loss`).  Stage 'diffusion'
 starts from `pretrained_model_ckpt_path` (any checkpoint format), whose
@@ -43,16 +55,21 @@ from mocodad_tpu_torch.config import Config
 from mocodad_tpu_torch.data import (PoseWindows, affine_transform_matrices,
                                     apply_affine_batch, make_loader,
                                     num_batches, prefetch, to_device)
-from mocodad_tpu_torch.device import resolve_device
 from mocodad_tpu_torch.eval.harness import post_processing_from_config
 from mocodad_tpu_torch.models.mocodad import MoCoDADNet, build_model
+from mocodad_tpu_torch.nn.stsgcn import sync_batch_norms
+from mocodad_tpu_torch.parallel import (barrier, global_rows,
+                                        is_main_process, make_mesh,
+                                        replicate, shard_batch,
+                                        sum_gradients)
 from mocodad_tpu_torch.training.checkpoint import (TopKCheckpointManager,
                                                    merge_matching)
 from mocodad_tpu_torch.training.ema import ema_init, ema_update
 from mocodad_tpu_torch.training.inference import run_inference
 from mocodad_tpu_torch.utils.weights import load_checkpoint_state_dict
 
-# (step, batch rows) -> (t (B,), eps (B, C, Tc, V)), the loss's noise_override
+# (step, global batch rows) -> (t (B,), eps (B, C, Tc, V)) of the global
+# batch, the loss's noise_override
 TrainNoiseFn = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 
 LR_DECAY = 0.99  # per epoch (ref models/mocodad.py:324-334)
@@ -83,14 +100,21 @@ class Trainer:
     `cfg.seed`) on a training set.
 
     `device=None` means CUDA and raises without it; pass 'cpu' to train on
-    the CPU.  `noise_fn(step, batch_rows) -> (t, eps)`, when given,
-    replaces each step's draws of the timesteps and the forward noise.
+    the CPU.  `mesh` (or `n_devices`, through `parallel.make_mesh`) makes
+    this trainer one rank of a data-parallel run; by default a process in
+    a group is a rank of it and a process alone trains alone.
+    `noise_fn(step, batch_rows) -> (t, eps)`, when given, replaces each
+    step's draws of the timesteps and the forward noise, at the global
+    batch's rows.
     """
 
-    def __init__(self, cfg: Config, device=None,
+    def __init__(self, cfg: Config, device=None, mesh=None,
+                 n_devices: Optional[int] = None,
                  noise_fn: Optional[TrainNoiseFn] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(n_devices,
+                                                            device=device)
+        self.device = self.mesh.device
         self.model = build_model(cfg)
         self.noise_fn = noise_fn
         self.mats = torch.as_tensor(
@@ -124,6 +148,8 @@ class Trainer:
         if self.model.needs_pretrained:
             self._load_pretrained_into(net)
         self.net = net.to(self.device).train()
+        sync_batch_norms(self.net, self.mesh)
+        replicate(self.net, self.mesh)
         mask = self.model.trainable_mask(self.net)
         for k, p in self.net.named_parameters():
             p.requires_grad_(mask[k])
@@ -142,6 +168,7 @@ class Trainer:
         path = self.cfg.pretrained_model_ckpt_path
         if not path:
             raise ValueError('Pretrained model checkpoint path not specified')
+        barrier()   # rank 0 may have written it
         src = load_checkpoint_state_dict(path)
         net.load_state_dict(merge_matching(net.state_dict(), src),
                             strict=True)
@@ -155,21 +182,24 @@ class Trainer:
     def train_step(self, data: torch.Tensor, trans: torch.Tensor,
                    mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One update on a batch of un-transformed windows, their view
-        indices and the valid-row mask, all on the device
+        indices and the valid-row mask, all on the device (on a mesh, the
+        rank's rows of the global batch)
         (mocodad_tpu/training/loop.py:233-260).  Returns the loss metrics,
-        still on the device."""
+        still on the device (on a mesh, the global batch's)."""
         with record_function(SPANS[0]):
             data = apply_affine_batch(data, self.mats, trans.long())
-            noise = (None if self.noise_fn is None
-                     else self.noise_fn(self.step, data.shape[0]))
+            noise = (None if self.noise_fn is None else self.noise_fn(
+                self.step, global_rows(data.shape[0], self.mesh)))
             if noise is None:
                 self._gen.manual_seed(step_seed(self.cfg.seed, self.step))
             loss, metrics = self.model.loss(self.net, data, self._gen,
                                             sample_mask=mask,
-                                            noise_override=noise)
+                                            noise_override=noise,
+                                            mesh=self.mesh)
         with record_function(SPANS[1]):
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+            sum_gradients(self.net.parameters(), self.mesh)
         with record_function(SPANS[2]):
             for group in self.opt.param_groups:
                 group['lr'] = self.lr_at(self.step)
@@ -195,8 +225,10 @@ class Trainer:
         trainer wrote; return the epoch to continue at: the sidecar's
         epoch + 1, or derived from the step when the sidecar is lost
         (mocodad_tpu/training/loop.py:447-480)."""
+        barrier()   # rank 0 may have written it
         raw = torch.load(path, map_location=self.device, weights_only=False)
         self.net.load_state_dict(raw['state_dict'], strict=True)
+        replicate(self.net, self.mesh)
         if self.use_ema:
             src = raw.get('state_dict_ema') or raw['state_dict']
             self.ema = {k: src[k].to(self.device).clone() for k in self.ema}
@@ -231,7 +263,7 @@ class Trainer:
         try:
             res = run_inference(self.model, net, ds, self.cfg.batch_size,
                                 (1 << 30) + self.cfg.seed + epoch,
-                                self.device, with_pose=False)
+                                self.device, with_pose=False, mesh=self.mesh)
         finally:
             if live is not None:
                 for k, p in net.named_parameters():
@@ -249,6 +281,8 @@ class Trainer:
 
     def _place(self, b):
         dev = self.device
+        b = shard_batch({k: b[k] for k in ('data', 'trans', 'mask')},
+                        self.mesh)
         return (to_device(b['data'], dev), to_device(b['trans'], dev),
                 to_device(b['mask'], dev))
 
@@ -264,18 +298,23 @@ class Trainer:
         n_epochs = n_epochs if n_epochs is not None else cfg.n_epochs
         self.init_state(num_batches(train_ds, cfg.batch_size))
         start_epoch = 0
+        main = is_main_process()
         if resume:
             if resume is True or resume == 'auto':
                 resume = os.path.join(cfg.ckpt_dir, 'last.ckpt')
             start_epoch = self.restore_state(resume)
-            print(f'resumed from {resume} at epoch {start_epoch} '
-                  f'(step {self.step})', flush=True)
+            if main:
+                print(f'resumed from {resume} at epoch {start_epoch} '
+                      f'(step {self.step})', flush=True)
         monitor, mode = monitored_metric_for(cfg)
         ckpt = TopKCheckpointManager(cfg.ckpt_dir, monitor, mode, k=2)
         if resume:
             ckpt.restore_index()
 
-        with open(os.path.join(cfg.ckpt_dir, 'metrics.csv'), 'a') as log_f:
+        # every rank computes the same metrics; rank 0 owns the files
+        log_path = (os.path.join(cfg.ckpt_dir, 'metrics.csv') if main
+                    else os.devnull)
+        with open(log_path, 'a') as log_f:
             for epoch in range(start_epoch, n_epochs):
                 means, seconds = self._train_epoch(train_ds, epoch, log_f)
                 wps = len(train_ds) / seconds if seconds > 0 else 0.0
@@ -290,12 +329,14 @@ class Trainer:
                     means, epoch=epoch, step=self.step,
                     train_seconds=seconds, windows_per_s=wps,
                     val_seconds=val_seconds))
-                line = ' '.join(f'{k}={v:.5f}' for k, v in means.items())
-                print(f'[epoch {epoch}] {line} ({wps:.0f} windows/s)',
-                      flush=True)
                 log_f.write(f'{epoch},epoch_end,' + ','.join(
                     f'{k}={v}' for k, v in means.items()) + '\n')
                 log_f.flush()
+                if not main:
+                    continue
+                line = ' '.join(f'{k}={v:.5f}' for k, v in means.items())
+                print(f'[epoch {epoch}] {line} ({wps:.0f} windows/s)',
+                      flush=True)
                 value = means.get(monitor)
                 if value is not None:
                     ckpt.save(self.payload(), epoch, value)
@@ -321,8 +362,9 @@ class Trainer:
             if self.step - last_logged >= self._log_every:
                 last_logged = self.step
                 vals = {k: float(v) for k, v in metrics.items()}
-                print(f'epoch {epoch} step {self.step}: ' + ' '.join(
-                    f'{k}={v:.5f}' for k, v in vals.items()), flush=True)
+                if is_main_process():
+                    print(f'epoch {epoch} step {self.step}: ' + ' '.join(
+                        f'{k}={v:.5f}' for k, v in vals.items()), flush=True)
                 log_f.write(f'{epoch},{self.step},' + ','.join(
                     f'{k}={v}' for k, v in vals.items()) + '\n')
         # reading the means waits for the card: the epoch's time is then

@@ -52,6 +52,9 @@ def test_import_leaves_jax_out():
         'import mocodad_tpu_torch.models.mocodad_latent\n'
         'import mocodad_tpu_torch.viz, mocodad_tpu_torch.viz.report\n'
         'import mocodad_tpu_torch.viz.vis\n'
+        'import mocodad_tpu_torch.parallel\n'
+        'import mocodad_tpu_torch.parallel.distributed\n'
+        'import mocodad_tpu_torch.parallel.mesh\n'
         'import eval_MoCoDAD_torch, train_MoCoDAD_torch, chip_smoke\n'
         'import serve_MoCoDAD_torch, predict_MoCoDAD_torch\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in '
@@ -121,6 +124,22 @@ def test_latent_entry_points_raise_without_cuda(tmp_path):
             Trainer(cfg)
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             restore_and_infer(cfg)
+
+
+def test_mesh_and_launcher_raise_without_cuda():
+    """A data-parallel run on the card asks for CUDA like any other entry
+    point: without it, the mesh, the device count check and the CLIs'
+    launcher raise; nothing places CUDA ranks on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('CUDA is present: the default device is usable')
+    from mocodad_tpu_torch.parallel import launch, make_mesh
+    from mocodad_tpu_torch.device import check_device_count
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        make_mesh()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        check_device_count(2)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        launch(print, (), 2, 'cuda')
 
 
 def test_restore_and_infer_raises_without_cuda(tmp_path):

@@ -147,11 +147,35 @@ Phases, each printing one line:
                than the GPUs refused), dist_nccl2 (dist2_shared's checks
                over NCCL on two cards where two are visible, else
                `skipped=one_gpu`).
+ 38-41. the JAX Trainer's default path, the window pool on the card and
+               K train steps per dispatch as one CUDA graph
+               (`device_data`, `steps_per_dispatch`), where phases 6, 11,
+               13-16 and 27-32 pin host batches (`device_data: false`):
+               train_pool (after phase 16: phase 13's fit with the pool,
+               one step per dispatch; steps/s, B1's validation launches,
+               and one cudnn.deterministic epoch each of host batches and
+               the pool, their losses and parameters within 1e-6),
+               train_graph (the same with 8 steps per dispatch: one
+               capture, one replay and one eager step per epoch, held to
+               train_pool at train_agree's bounds, steps/s, epoch 0's
+               training pass from the trace `profile_dir` writes: device
+               busy ms, idle share, host ms in the replays and the eager
+               steps; one bfloat16 epoch), agree_pool (after phase 12:
+               the f32 and bf16 agree passes with the pool, bit-equal to
+               phases 6 and 11, 81 launches each, window-views/s in turns
+               with host batches, profile_pool and profile_pool_bf16 as
+               7), latent_pool (after phase 33: one diffusion-stage epoch
+               with the pool and 4 steps per dispatch, frozen parameters
+               bit-equal, no launch).  The CLIs of phases 26 and 33 run
+               the default path.
 Then the script's total seconds, one JSON line with each kernel's numbers
 (B1's entries also carry `serve_*`, `n12800_*` and `n25600_*` keys: the
 serve path's launches and window-views/s, and B1's numbers at N = 12,800
-and at a rank's 25,600; every entry `latent_launches`, its count over
-phases 27-33, 0, and its launches on phases 34-37: `dist1_launches`,
+and at a rank's 25,600; `pool_launches`, on phase 40's passes, and
+`denoiser` its validation launches in phases 38-39,
+`train_pool_val_launches` and `train_graph_val_launches`; every entry
+`latent_launches`, its count over
+phases 27-33 and 41, 0, and its launches on phases 34-37: `dist1_launches`,
 `dist2_launches` (per rank), `dist_cli_launches`, and `dist_nccl2_launches`
 where two cards are visible), the card line, and
 last
@@ -200,7 +224,8 @@ from mocodad_tpu_torch.data import (affine_transform_matrices,
                                     to_device)
 from mocodad_tpu_torch.training.inference import (restore_and_infer,
                                                   run_inference)
-from mocodad_tpu_torch.training.loop import SPANS, Trainer
+from mocodad_tpu_torch.training.loop import EPOCH_SPAN, SPANS, Trainer
+from mocodad_tpu_torch.training.step_graph import REPLAY_SPAN
 from mocodad_tpu_torch.utils.weights import (is_torch_checkpoint,
                                              load_checkpoint_state_dict)
 
@@ -426,15 +451,18 @@ def main_path(cfg, eval_dtype: str):
 
 def train_config(data_dir: str, ckpt_dir: str, **kw):
     """config/UBnormal/mocodad_train.yaml's settings on the synthetic set;
-    `kw` overrides any of them."""
+    `kw` overrides any of them, and `kw['extras']` is merged into
+    `device_data: false`: the phases that measure the host-batch path
+    keep it, and the pool phases (38-41) ask for the pool."""
     base = dict(
         split='train', validation=True, n_generated_samples=5,
         batch_size=1024, num_transform=5, data_dir=data_dir,
         ckpt_dir=ckpt_dir, use_hr=False, vid_res=[640, 360],
         gt_path=os.path.join(data_dir, 'validating', 'test_frame_mask'),
         opt_lr=TRAIN_LR)
+    extras = {'device_data': False, **kw.pop('extras', {})}
     base.update(kw)
-    return flagship_config(**base)
+    return flagship_config(**base, extras=extras)
 
 
 def train_phase(data_dir: str, work: str, card: str, name: str = 'train',
@@ -447,21 +475,8 @@ def train_phase(data_dir: str, work: str, card: str, name: str = 'train',
     train_ds = build_dataset(cfg, split='train')
     val_ds = build_dataset(cfg, split='validation')
     val_batches = -(-len(val_ds) // cfg.batch_size)
-    trainer = Trainer(cfg, device='cuda')
-    validate, val_launches = trainer.validation_metric, []
-
-    def counted(ds, epoch):
-        before = P.DENOISER.launches
-        out = validate(ds, epoch)
-        val_launches.append(P.DENOISER.launches - before)
-        return out
-
-    trainer.validation_metric = counted
-    reset_launches()
-    t0 = time.perf_counter()
-    trainer.fit(train_ds, val_ds, n_epochs=2)
-    fit_seconds = time.perf_counter() - t0
-    counts = launch_counts()
+    trainer, losses, val_launches, fit_seconds, counts = counted_fit(
+        cfg, train_ds, val_ds, 2)
     steps = trainer.steps_per_epoch
     for e, launches in zip(trainer.history, val_launches):
         phase(name, epoch=e['epoch'], steps=steps,
@@ -509,7 +524,43 @@ def train_phase(data_dir: str, work: str, card: str, name: str = 'train',
             abs(auc - best['AUC']) > 1e-6 or reloaded != 9 * val_batches:
         raise RuntimeError('best_weights.ckpt does not give back the '
                            'validation it was saved for')
-    return cfg, train_ds
+    return cfg, train_ds, val_ds, dict(losses=losses, params=params_of(
+        trainer))
+
+
+def counted_fit(cfg, train_ds, val_ds, n_epochs: int):
+    """`Trainer.fit` on the card with every launch count set to 0 just
+    before and read just after, recording each step's loss and B1's
+    launches in each validation: (trainer, per-step losses, validation
+    launches, fit seconds, counts)."""
+    trainer = Trainer(cfg, device='cuda')
+    validate, val_launches = trainer.validation_metric, []
+    dispatch, losses = trainer._dispatch, []
+
+    def counted(ds, epoch):
+        before = P.DENOISER.launches
+        out = validate(ds, epoch)
+        val_launches.append(P.DENOISER.launches - before)
+        return out
+
+    def recorded(*batch):
+        m = dispatch(*batch)
+        losses.append(m['loss'].reshape(-1))
+        return m
+
+    trainer.validation_metric, trainer._dispatch = counted, recorded
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, val_ds, n_epochs=n_epochs)
+    fit_seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    return (trainer, torch.cat(losses).double().cpu().numpy(), val_launches,
+            fit_seconds, counts)
+
+
+def params_of(trainer) -> dict:
+    return {k: p.detach().cpu().double()
+            for k, p in trainer.net.named_parameters()}
 
 
 def train_batches(cfg, ds, n: int):
@@ -688,6 +739,256 @@ def train_bf16_phase(cfg, ds, card: str) -> None:
           card=repr(card))
 
 
+# ---------------------------------------------------------------------------
+# The default training and eval path (phases 38-41): the window pool on the
+# device, and K train steps per dispatch as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# the pool against host batches: the same steps on the same windows, held
+# within 1e-6 of the largest loss and parameter (the JAX package holds its
+# pool to 1e-6).  Training on the card is not bit-reproducible as it
+# stands: cuDNN picks backward kernels that sum in a run-dependent order,
+# and the pool fit landed 3.9e-6 (losses) and 9.3e-3 of the largest
+# parameter from phase 13's host-batch fit of the same steps (NVIDIA H100
+# 80GB HBM3, 700.00 W), where with `cudnn.deterministic` the two are
+# bit-equal.  So the pool is held to host batches in one deterministic
+# epoch of each
+POOL_REL = 1e-6
+# the graph against eager pool steps: capturable Adam computes its bias
+# correction on the device in float32 where the eager Adam takes Python
+# floats, a rounding-level difference in each step's size; step 1's loss
+# (before any update) within 1e-5, the later losses and the parameters as
+# train_agree holds the card against the CPU
+GRAPH_STEP1_RTOL = 1e-5
+GRAPH_K = 8
+
+
+def params_rel(got: dict, want: dict) -> float:
+    largest = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k] - v).abs().max()) for k, v in want.items()) \
+        / largest
+
+
+def pool_cfg(tcfg, name: str, k, **extras):
+    return train_config(tcfg.data_dir, os.path.join(os.path.dirname(
+        tcfg.ckpt_dir), name), extras={'log_every_n_steps': 5,
+                                       'device_data': True,
+                                       'steps_per_dispatch': k, **extras})
+
+
+def fit_lines(name: str, trainer, val_launches, card: str) -> None:
+    """One line per epoch of a pool fit (phases 38, 39)."""
+    steps = trainer.steps_per_epoch
+    for e, launches in zip(trainer.history, val_launches):
+        phase(name, epoch=e['epoch'], steps=steps,
+              graph_replays=e['graph_replays'],
+              steps_per_s=f'{steps / e["train_seconds"]:.2f}',
+              windows_per_s=f'{e["windows_per_s"]:.1f}',
+              loss=f'{e["loss"]:.6f}',
+              auc=f'{e["AUC"]:.6f}' if 'AUC' in e else 'none',
+              val_seconds=f'{e["val_seconds"]:.3f}', val_launches=launches,
+              card=repr(card))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def train_pool_phase(tcfg, train_ds, val_ds, host: dict, card: str) -> dict:
+    """Phase 38: `fit` of phase 13's configuration with `device_data:
+    true` and one step per dispatch: each step gathers its windows from
+    the pool on the card; steps/s and B1's launches in each validation,
+    and how far it lands from phase 13's host-batch run (printed, not
+    held: cuDNN's backward is not bit-reproducible).  Then one epoch each
+    of host batches and of the pool under `cudnn.deterministic`: every
+    step's loss and the parameters within POOL_REL of the largest.
+    Returns the first run for phase 39."""
+    cfg = pool_cfg(tcfg, 'train_pool', 1)
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    trainer, losses, val_launches, seconds, counts = counted_fit(
+        cfg, train_ds, val_ds, 2)
+    fit_lines('train_pool', trainer, val_launches, card)
+    params = params_of(trainer)
+    val_batches = -(-len(val_ds) // cfg.batch_size)
+    det = {}
+    with cudnn_deterministic():
+        for name, pool in (('host', False), ('pool', True)):
+            c = pool_cfg(tcfg, f'train_pool_{name}', 1, device_data=pool)
+            os.makedirs(c.ckpt_dir, exist_ok=True)
+            t, det_losses, _, _, _ = counted_fit(c, train_ds, None, 1)
+            det[name] = (det_losses, params_of(t))
+    loss_rel = rel_to_largest(det['pool'][0], det['host'][0])
+    p_rel = params_rel(det['pool'][1], det['host'][1])
+    ok = (loss_rel <= POOL_REL and p_rel <= POOL_REL
+          and trainer.graph_captures == 0
+          and all(n == 9 * val_batches for n in val_launches)
+          and counts['denoiser'] == sum(val_launches))
+    phase('train_pool', steps=len(losses), fit_seconds=f'{seconds:.3f}',
+          loss_rel_to_phase13=f'{rel_to_largest(losses, host["losses"]):.3e}',
+          params_rel_to_phase13=f'{params_rel(params, host["params"]):.3e}',
+          deterministic_steps=len(det['pool'][0]),
+          deterministic_loss_rel_to_host=f'{loss_rel:.3e}',
+          deterministic_params_rel_to_host=f'{p_rel:.3e}', bound=POOL_REL,
+          val_launches=json.dumps(val_launches), ok=ok)
+    if not ok:
+        raise RuntimeError('train_pool: the pool does not train as host '
+                           'batches do')
+    return dict(losses=losses, params=params, val_launches=val_launches)
+
+
+def trace_breakdown(trace_dir: str) -> dict:
+    """Where epoch 0's training pass (the EPOCH_SPAN range) went in the
+    torch.profiler trace that `profile_dir` wrote: its ms, the device's
+    busy ms (the union of kernels and copies) and idle share (None without
+    device activity), the kernels, and the host ms inside the graph
+    replays' and the eager steps' ranges."""
+    files = sorted(f for f in os.listdir(trace_dir) if f.endswith('.json'))
+    if not files:
+        raise RuntimeError(f'no profiler trace in {trace_dir}')
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    ranges = [e for e in events if e.get('cat') == 'user_annotation']
+    epoch = [e for e in ranges if e['name'] == EPOCH_SPAN]
+    if not epoch:
+        raise RuntimeError(f'no {EPOCH_SPAN} range in {files[0]}')
+    t0, t1 = epoch[0]['ts'], epoch[0]['ts'] + epoch[0]['dur']
+    device = sorted(
+        (max(e['ts'], t0), min(e['ts'] + e['dur'], t1), e['cat'])
+        for e in events
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+        and e['ts'] < t1 and e['ts'] + e['dur'] > t0)
+    busy, end = 0.0, t0
+    for a, b, _ in device:     # the union of the device's busy intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+
+    def host_ms(names):
+        return sum(e['dur'] for e in ranges if e['name'] in names
+                   and t0 <= e['ts'] < t1) / 1e3
+    return dict(trace=files[0], epoch_ms=(t1 - t0) / 1e3,
+                device_busy_ms=busy / 1e3,
+                idle_share=1 - busy / (t1 - t0) if device else None,
+                kernels=sum(c == 'kernel' for _, _, c in device),
+                replay_host_ms=host_ms({REPLAY_SPAN}),
+                eager_step_host_ms=host_ms(set(SPANS)))
+
+
+def train_graph_phase(tcfg, train_ds, val_ds, pool: dict, card: str):
+    """Phase 39: `fit` with the pool and GRAPH_K steps per dispatch, each
+    group one replay of a CUDA graph captured once: its losses and
+    parameters against phase 38's eager steps, one capture and 9 // 8 = 1
+    replay per epoch (the 9th step eager), steps/s, and the device's
+    idle share over epoch 0's training pass from the trace that
+    `profile_dir` wrote.  Then one epoch at `train_dtype: bfloat16`.
+    Returns B1's validation launches."""
+    trace_dir = os.path.join(os.path.dirname(tcfg.ckpt_dir), 'graph_trace')
+    cfg = pool_cfg(tcfg, 'train_graph', GRAPH_K, profile_dir=trace_dir)
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    trainer, losses, val_launches, seconds, counts = counted_fit(
+        cfg, train_ds, val_ds, 2)
+    fit_lines('train_graph', trainer, val_launches, card)
+    where = trace_breakdown(trace_dir)
+    want, n = pool['losses'], len(pool['losses'])
+    step1 = abs(losses[0] - want[0]) / abs(want[0])
+    loss_rel = (float(np.max(np.abs(losses - want) / np.abs(want)))
+                if losses.shape == want.shape else float('inf'))
+    params = params_of(trainer)
+    diffs = {k: (v - pool['params'][k]).abs() for k, v in params.items()}
+    param_max = max(float(d.max()) for d in diffs.values())
+    kept = [d for k, d in diffs.items() if not k.endswith(BN_FED_BIASES)]
+    param_mean = float(sum(d.sum() for d in kept) /
+                       sum(d.numel() for d in kept))
+    bound_max = 2 * n * TRAIN_STEP_MAX * cfg.opt_lr
+    steps = trainer.steps_per_epoch
+    replays = [e['graph_replays'] for e in trainer.history]
+    val_batches = -(-len(val_ds) // cfg.batch_size)
+    ok = (step1 <= GRAPH_STEP1_RTOL and loss_rel <= TRAIN_LOSS_RTOL
+          and param_max <= bound_max and param_mean <= TRAIN_PARAM_MEAN
+          and trainer.graph_captures == 1
+          and replays == [steps // GRAPH_K] * 2
+          and all(v == 9 * val_batches for v in val_launches)
+          and counts['denoiser'] == sum(val_launches))
+    phase('train_graph', steps=n, k=GRAPH_K,
+          captures=trainer.graph_captures,
+          replays_per_epoch=json.dumps(replays),
+          eager_steps_per_epoch=steps % GRAPH_K,
+          fit_seconds=f'{seconds:.3f}',
+          loss_step1_rel=f'{step1:.3e}', loss_step1_rtol=GRAPH_STEP1_RTOL,
+          loss_max_rel=f'{loss_rel:.3e}', loss_rtol=TRAIN_LOSS_RTOL,
+          param_max_abs=f'{param_max:.3e}', bound_max=f'{bound_max:.3e}',
+          param_mean_abs=f'{param_mean:.3e}', bound_mean=TRAIN_PARAM_MEAN,
+          ok=ok)
+    idle = where.pop('idle_share')
+    phase('train_graph', profiled='epoch 0 training pass',
+          **{k: (f'{v:.3f}' if isinstance(v, float) else v)
+             for k, v in where.items()},
+          idle_share=('not measured (no device events)' if idle is None
+                      else f'{idle:.3f}'), card=repr(card))
+    if not ok:
+        raise RuntimeError('train_graph: the graphed steps do not train as '
+                           'the eager pool steps do')
+    bcfg = pool_cfg(tcfg, 'train_graph_bf16', GRAPH_K,
+                    train_dtype='bfloat16')
+    os.makedirs(bcfg.ckpt_dir, exist_ok=True)
+    t = Trainer(bcfg, device='cuda')
+    t.fit(train_ds, None, n_epochs=1)
+    e = t.history[0]
+    ok = (bool(np.isfinite([e['loss'], e['loss_noise']]).all())
+          and e['graph_replays'] == steps // GRAPH_K
+          and t.graph_captures == 1)
+    phase('train_graph', train_dtype='bfloat16', steps=t.steps_per_epoch,
+          graph_replays=e['graph_replays'],
+          steps_per_s=f'{t.steps_per_epoch / e["train_seconds"]:.2f}',
+          loss=f'{e["loss"]:.6f}', ok=ok, card=repr(card))
+    if not ok:
+        raise RuntimeError(f'train_graph at bfloat16: {e}')
+    return val_launches
+
+
+def agree_pool_phase(ds, cfg, noise, net, runs, card: str) -> dict:
+    """Phase 40: the f32 and bf16 agree passes (phases 6 and 11) with the
+    window pool, on the same injected noise: the losses, views, meta and
+    frames bit-equal to the host-batch passes', 9 B1 launches per batch,
+    then host and pool passes in turns (host, pool, pool, host) for their
+    window-views/s, and a pool pass under the profiler.  Returns B1's
+    launches on the pool passes."""
+    n_batches = -(-len(ds) // cfg.batch_size)
+    out = {}
+    for model, want, key in runs:
+        pool_run = eval_pass(model, net, ds, cfg, noise, device_data=True)
+        host_run = eval_pass(model, net, ds, cfg, noise)
+        reset_launches()
+        got, _ = pool_run()
+        counts = launch_counts()
+        check_main_launches(counts, key, n_batches, f'pool {key}')
+        equal = all(np.array_equal(got[k], want[k])
+                    for k in ('loss', 'trans', 'meta', 'frames'))
+        rates = {'host': [], 'pool': []}
+        for which in ('host', 'pool', 'pool', 'host'):
+            _, secs = (host_run if which == 'host' else pool_run)()
+            rates[which].append(round(len(ds) / secs, 1))
+        phase('agree_pool', kernel=key, dtype=str(model.eval_dtype)[6:],
+              windows=len(got['loss']), launches=counts[key],
+              bit_equal_to_host=equal,
+              pool_windows_per_s=json.dumps(rates['pool']),
+              host_windows_per_s=json.dumps(rates['host']), ok=equal,
+              card=repr(card))
+        if not equal:
+            raise RuntimeError(f'agree_pool ({key}): the pool pass differs '
+                               f'from the host-batch pass')
+        profile_phase('profile_pool' if key == 'denoiser'
+                      else 'profile_pool_bf16', pool_run)
+        out[key] = counts[key]
+    return out
+
+
 # the U-Net at more frames than the flagship's 3: inject with 2 of 6
 # frames conditioning (T = 4), and concat (T = 6, as inbetween_imp,
 # random_imp and no_condition at seg_len 6)
@@ -781,14 +1082,16 @@ def time_frames_phase(g, peaks, card: str) -> dict:
     return out
 
 
-def eval_pass(model, net, ds, cfg, noise):
+def eval_pass(model, net, ds, cfg, noise, device_data: bool = False):
     """One `run_inference` pass over `ds` on the given noise, on the net's
-    device: () -> (result, host seconds)."""
+    device, on host batches or with the window pool: () -> (result, host
+    seconds)."""
     def run():
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = run_inference(model, net, ds, cfg.batch_size, cfg.seed,
-                          next(net.parameters()).device, noise_fn=noise)
+                          next(net.parameters()).device, noise_fn=noise,
+                          device_data=device_data)
         return r, time.perf_counter() - t
     return run
 
@@ -1245,13 +1548,16 @@ LATENT_AGREE_REL = 1e-5
 
 def latent_cfg(stage: str, data_dir: str, ckpt_dir: str, **kw):
     """mocodad-latent_train.yaml's settings at `stage` on the synthetic
-    set (its own frame size, no HR masks); `kw` overrides any of them."""
+    set (its own frame size, no HR masks), on host batches; `kw`
+    overrides any of them, and `kw['extras']` is merged into the
+    extras."""
+    extras = {'log_every_n_steps': 5, 'device_data': False,
+              **kw.pop('extras', {})}
     base = dict(data_dir=data_dir, ckpt_dir=ckpt_dir, vid_res=[640, 360],
                 gt_path=os.path.join(data_dir, 'validating',
-                                     'test_frame_mask'),
-                extras={'log_every_n_steps': 5})
+                                     'test_frame_mask'))
     base.update(kw)
-    return latent_config(stage, **base)
+    return latent_config(stage, **base, extras=extras)
 
 
 def latent_test_cfg(data_dir: str, ckpt_dir: str, **kw):
@@ -1573,6 +1879,9 @@ def latent_cli_phase(data_dir: str, work: str) -> None:
 
     def write(name, cfg, **kw):
         d = cfg.to_dict()
+        # the CLIs run the default path: the pool and, for training, K
+        # steps per dispatch as a CUDA graph
+        d.pop('device_data')
         d.update(common, test_path=cfg.gt_path, dir_name=name)
         d.update(kw)
         path = os.path.join(root, f'{name}.json')
@@ -1623,6 +1932,41 @@ def latent_cli_phase(data_dir: str, work: str) -> None:
                            f'launches {launches}')
 
 
+def latent_pool_phase(data_dir: str, work: str, pretrained: str,
+                      card: str) -> None:
+    """Phase 41: one diffusion-stage epoch from the pretrain stage's
+    best_weights.ckpt with the window pool and 4 steps per dispatch (a
+    CUDA graph of 4 steps): finite losses, every frozen parameter
+    bit-equal before and after, one capture, and no kernel of the port
+    launched."""
+    cfg = latent_cfg('diffusion', data_dir,
+                     os.path.join(work, 'latent_pool'),
+                     pretrained_model_ckpt_path=pretrained,
+                     extras={'device_data': True, 'steps_per_dispatch': 4})
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    first = Trainer(cfg, device='cuda')
+    first.init_state(1)
+    start = {k: p.detach().clone() for k, p in first.net.named_parameters()
+             if not k.startswith('denoiser.')}
+    trainer = Trainer(cfg, device='cuda')
+    trainer.fit(build_dataset(cfg, split='train'), None, n_epochs=1)
+    check_no_launches('pool')
+    e = trainer.history[0]
+    frozen = dict(trainer.net.named_parameters())
+    frozen_equal = all(torch.equal(frozen[k], v) for k, v in start.items())
+    ok = (bool(np.isfinite([e['loss'], e['loss_noise']]).all())
+          and frozen_equal and trainer.graph_captures == 1
+          and e['graph_replays'] == trainer.steps_per_epoch // 4)
+    phase('latent_pool', stage='diffusion', k=4,
+          steps=trainer.steps_per_epoch,
+          graph_replays=e['graph_replays'],
+          steps_per_s=f'{trainer.steps_per_epoch / e["train_seconds"]:.2f}',
+          loss_noise=f'{e["loss_noise"]:.6f}', frozen_params=len(start),
+          frozen_bit_equal=frozen_equal, launches=0, ok=ok, card=repr(card))
+    if not ok:
+        raise RuntimeError(f'latent_pool: {e}, frozen equal {frozen_equal}')
+
+
 def latent_phases(data_dir: str, work: str, poses, card: str) -> dict:
     """Phases 27-33, with every launch count set to 0 before them; returns
     this process's counts after them, checked 0 after each path.  The
@@ -1639,6 +1983,7 @@ def latent_phases(data_dir: str, work: str, poses, card: str) -> dict:
     latent_profile_phase(model, net, ds, mcfg, card)
     latent_serve_phase(mcfg, net, poses, card)
     latent_cli_phase(data_dir, work)
+    latent_pool_phase(data_dir, work, pretrained, card)
     return launch_counts()
 
 
@@ -2282,9 +2627,17 @@ def main() -> int:
         # 12. where the time of the bfloat16 pass goes
         profile_phase('profile_bf16', run16)
 
+        # 40. both agree passes again with the window pool
+        pool_launches = agree_pool_phase(
+            ds, cfg, noise, net2, ((model, r_kernel, 'denoiser'),
+                                   (model16, r16_kernel, 'denoiser_bf16')),
+            card)
+        for key, n in pool_launches.items():
+            entries[key]['pool_launches'] = n
+
         # 13-16. training from a fresh model; no train step launches a
         # kernel (counts from 0 before phases 14-16, read after)
-        tcfg, train_ds = train_phase(data_dir, work, card)
+        tcfg, train_ds, val_ds, host_run = train_phase(data_dir, work, card)
         reset_launches()
         train_agree_phase(tcfg, train_ds)
         train_profile_phase(tcfg, train_ds, card)
@@ -2292,6 +2645,14 @@ def main() -> int:
         if any(launch_counts().values()):
             raise RuntimeError(f'train steps launched kernels: '
                                f'{launch_counts()}')
+        # 38-39. the default training path: the window pool, then K steps
+        # per dispatch as one CUDA graph
+        pool_run = train_pool_phase(tcfg, train_ds, val_ds, host_run, card)
+        graph_launches = train_graph_phase(tcfg, train_ds, val_ds, pool_run,
+                                           card)
+        entries['denoiser'].update(
+            train_pool_val_launches=pool_run['val_launches'],
+            train_graph_val_launches=graph_launches)
 
         # 17-22. B1 at 4 and 6 frames; the other strategies and samplers
         frame_errs = check_frames_phase(g)

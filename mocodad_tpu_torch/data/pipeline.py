@@ -85,13 +85,24 @@ def build_dataset(cfg: Config, split: str = 'train') -> PoseWindows:
 
 
 def make_loader(ds: PoseWindows, batch_size: int, shuffle: bool = False,
-                seed: int = 0, pad_to_full: bool = True
+                seed: int = 0, pad_to_full: bool = True,
+                yield_indices: bool = False
                 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield host batches over the virtual (sample x transform) index space.
 
     Each batch carries the UN-transformed window data plus its transform
     index.  The final partial batch is padded to batch_size by wrapping the
-    epoch order, with `mask` marking the valid rows."""
+    epoch order, with `mask` marking the valid rows.
+
+    yield_indices: yield only {'idx' int32, 'trans' int32, 'mask'
+    float32}, the windows' rows, for a window pool on the device that the
+    step gathers from (mocodad_tpu/data/pipeline.py:89-136).  The
+    per-item random crops of old_aug need materialized batches, so asking
+    for both raises.  (The JAX loader's `double_item` second view is not
+    ported, and neither is its refusal here.)"""
+    if yield_indices and ds.old_aug:
+        raise ValueError('yield_indices is incompatible with old_aug '
+                         '(per-item host-side augmentation)')
     n_virtual = len(ds)
     rng = np.random.default_rng(seed)
     order = np.arange(n_virtual)
@@ -107,6 +118,10 @@ def make_loader(ds: PoseWindows, batch_size: int, shuffle: bool = False,
         sample_idx = idx % n
         mask = np.zeros(idx.shape[0], dtype=np.float32)
         mask[:valid] = 1.0
+        if yield_indices:
+            yield {'idx': sample_idx.astype(np.int32),
+                   'trans': (idx // n).astype(np.int32), 'mask': mask}
+            continue
         data = ds.data[sample_idx]
         if ds.old_aug:
             from mocodad_tpu_torch.data.transforms import temporal_crop

@@ -243,6 +243,33 @@ class MoCoDADModel:
         order = self.frame_order(generator, global_rows(rows, mesh), device)
         return order if order.dim() == 1 else local_rows(order, mesh)
 
+    @property
+    def draws_order(self) -> bool:
+        """Whether `frame_order` draws (random_imp) rather than returning
+        the static order."""
+        return self._static_order is None
+
+    def noise_shape(self, window: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The forward noise's shape per window of shape `window` (C, T,
+        V): the corrupted frames'."""
+        c, t, v = window
+        return (c, t - self.n_frames_condition, v)
+
+    def draw_noise(self, generator: Optional[torch.Generator], rows: int,
+                   window: Tuple[int, ...], device: torch.device, mesh=None,
+                   dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`loss`'s draws of t (rows,) and the forward noise (rows,
+        *noise_shape(window)) for the rank's `rows` of a global batch:
+        drawn at the global size, t first, the rank's block kept."""
+        bg = global_rows(rows, mesh)
+        t = local_rows(sample_timesteps(bg, self.schedule.noise_steps,
+                                        generator), mesh)
+        eps = local_rows(torch.randn((bg,) + self.noise_shape(window),
+                                     generator=generator, device=device,
+                                     dtype=dtype), mesh)
+        return t, eps
+
     def build_net(self) -> MoCoDADNet:
         cfg = self.cfg
         return MoCoDADNet(
@@ -328,14 +355,15 @@ class MoCoDADModel:
              generator: Optional[torch.Generator] = None,
              sample_mask: Optional[torch.Tensor] = None,
              noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
-             = None, mesh=None
+             = None, mesh=None, order: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Noise-prediction loss plus the AE reconstruction term, on `net`
         in its current mode (mocodad_tpu/models/mocodad.py:276-368).
 
         data: (B, C, T, V) on the device to run on; `generator`, on that
-        device, draws t and the forward noise unless `noise_override =
-        (t, eps)` is given.  In train mode the BatchNorm running statistics
+        device, draws the frame order (random_imp), then t and the forward
+        noise (`draw_noise`), unless `order` or `noise_override = (t,
+        eps)` is given.  In train mode the BatchNorm running statistics
         update in place on `net` (JAX returns them as `mutated`).  Returns
         (loss, metrics) with metrics 'loss_noise', 'loss_recons' (AE only)
         and 'loss', detached.
@@ -349,7 +377,8 @@ class MoCoDADModel:
         b = data.shape[0]
         dev = data.device
         schedule = self.tables(dev)[1]
-        order = self.rank_frame_order(generator, b, dev, mesh)
+        if order is None:
+            order = self.rank_frame_order(generator, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
         inject_cond = cond_data if self.strategy == 'inject' else None
@@ -359,12 +388,8 @@ class MoCoDADModel:
             t = t.to(dev).long()
             eps = eps.to(dev, corrupt_data.dtype)
         else:
-            bg = global_rows(b, mesh)
-            t = local_rows(sample_timesteps(bg, self.schedule.noise_steps,
-                                            generator), mesh)
-            eps = local_rows(torch.randn(
-                (bg,) + tuple(corrupt_data.shape[1:]), generator=generator,
-                device=dev, dtype=corrupt_data.dtype), mesh)
+            t, eps = self.draw_noise(generator, b, tuple(data.shape[1:]),
+                                     dev, mesh, corrupt_data.dtype)
         x_t, noise = forward_noise(schedule, corrupt_data, t, eps=eps)
         x_in = F.assemble_input(self.strategy, cond_data, x_t, order,
                                 self.n_frames_condition)

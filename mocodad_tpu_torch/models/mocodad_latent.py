@@ -32,8 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from mocodad_tpu_torch.config import Config
-from mocodad_tpu_torch.diffusion import (ddpm_step_coefficients,
-                                         sample_timesteps)
+from mocodad_tpu_torch.diffusion import ddpm_step_coefficients
 from mocodad_tpu_torch.models import frames as F
 from mocodad_tpu_torch.models.losses import aggregate, elementwise_loss
 from mocodad_tpu_torch.models.mocodad import (MoCoDADModel, MoCoDADNet,
@@ -136,6 +135,10 @@ class MoCoDADLatentModel(MoCoDADModel):
         # generative per-window loss to serve (mocodad_tpu/serve.py:178-186)
         self.needs_pretrained = self.servable = self.stage == 'diffusion'
 
+    def noise_shape(self, window: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The latent noise's shape per window."""
+        return (self.latent_embedding_dim,)
+
     def build_net(self) -> MoCoDADLatentNet:
         cfg = self.cfg
         return MoCoDADLatentNet(
@@ -170,7 +173,7 @@ class MoCoDADLatentModel(MoCoDADModel):
              generator: Optional[torch.Generator] = None,
              sample_mask: Optional[torch.Tensor] = None,
              noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]]
-             = None, mesh=None
+             = None, mesh=None, order: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The stage's loss on `net` in its current mode (:169-239).
 
@@ -179,12 +182,13 @@ class MoCoDADLatentModel(MoCoDADModel):
         stage 'diffusion': the latent noise-prediction loss
         ('loss_noise').  `noise_override = (t (B,), eps (B,
         latent_embedding_dim))` replaces the draws of t and the latent
-        noise (pretrain draws t and eps too, and uses neither).  `mesh` as
-        for `MoCoDADModel.loss`."""
+        noise (pretrain draws t and eps too, and uses neither).  `mesh`
+        and `order` as for `MoCoDADModel.loss`."""
         b = data.shape[0]
         dev = data.device
         schedule = self.tables(dev)[1]
-        order = self.rank_frame_order(generator, b, dev, mesh)
+        if order is None:
+            order = self.rank_frame_order(generator, b, dev, mesh)
         cond_data, corrupt_data = F.select_frames(data, order,
                                                   self.n_frames_condition)
         if noise_override is not None:
@@ -193,12 +197,8 @@ class MoCoDADLatentModel(MoCoDADModel):
             t = t.to(dev).long()
             eps = eps.to(dev, torch.float32)
         else:
-            bg = global_rows(b, mesh)
-            t = local_rows(sample_timesteps(bg, self.schedule.noise_steps,
-                                            generator), mesh)
-            eps = local_rows(torch.randn((bg, self.latent_embedding_dim),
-                                         generator=generator, device=dev),
-                             mesh)
+            t, eps = self.draw_noise(generator, b, tuple(data.shape[1:]),
+                                     dev, mesh)
         a_hat = schedule.alpha_hat[t]
         args = (t, eps, torch.sqrt(a_hat), torch.sqrt(1.0 - a_hat))
         dt = self.train_dtype if net.training else torch.float32

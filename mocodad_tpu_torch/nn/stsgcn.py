@@ -24,8 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mocodad_tpu_torch.parallel.distributed import (is_distributed,
-                                                    sum_over_ranks)
+from mocodad_tpu_torch.parallel.distributed import (all_reduce_sum,
+                                                    is_distributed)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -36,16 +36,13 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     In train mode the input is normalized with the batch mean and the
     BIASED batch variance, and `running_var` takes the biased variance
     too, where `nn.BatchNorm2d` would put the unbiased one.  The statistics
-    are float32 whatever the input's dtype, as flax computes them; flax
-    takes the variance as E[x^2] - E[x]^2 and torch by Welford's method,
-    the same value up to float32 rounding.  The normalization is one
-    `batch_norm` call, so autograd sees one node.
+    are float32 for a bfloat16 or float32 input, as flax computes them.  The
+    normalization is written out (`global_batch_norm`), on one rank as on
+    several: with `mesh` set (`sync_batch_norms`) it takes the statistics
+    over every rank's rows, as flax does over a sharded global batch, and
+    only the sums cross the ranks, so W ranks round as one process does.
     Eval mode is `nn.BatchNorm2d`'s; parameter and buffer names are
     unchanged, so reference state dicts load with `strict=True`.
-
-    With `mesh` set (`sync_batch_norms`), train mode takes the statistics
-    over every rank's rows (`global_batch_norm`), as flax does over a
-    sharded global batch.
     """
 
     mesh = None
@@ -53,17 +50,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if is_distributed(self.mesh):
-            return global_batch_norm(self, x, self.weight, self.bias)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
-        return nn.functional.batch_norm(x, None, None, self.weight,
-                                        self.bias, True, 0.0, self.eps)
+        return global_batch_norm(self, x, self.weight, self.bias)
 
 
 class FlaxBatchNorm1d(nn.BatchNorm1d):
@@ -85,51 +72,85 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
             return nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, w, b, False, 0.0,
                 self.eps)
-        if is_distributed(self.mesh):
-            return global_batch_norm(self, x, w, b)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=0, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
-        return nn.functional.batch_norm(x, None, None, w, b, True, 0.0,
-                                        self.eps)
+        return global_batch_norm(self, x, w, b)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Flax's train-mode BatchNorm over the global batch of `mesh`'s ranks
+    (this process's rows off a mesh), in float32 or wider, with its
+    closed-form backward: one autograd node where the normalization
+    written out in tensor ops took a dozen, so a step issues fewer host
+    ops.
+
+    Forward: the per-channel sum of x and the row count, then the sum of
+    (x - mean)^2, each summed over the ranks; the biased variance, as
+    flax's.  Backward, with xhat = (x - mean) / std: the scale's and the
+    shift's gradients are this rank's sums of g * xhat and g (the step
+    sums parameter gradients over the ranks), and x's is
+    scale / std * (g - mean(g) - xhat * mean(g * xhat)) with the means
+    over the global batch, one more sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        c = x.shape[1]
+        dims = (0,) + tuple(range(2, x.ndim))
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        # float32 at least, as flax promotes: float64 stays float64
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dims), xf.new_full((1,), xf.numel() // c)]), mesh)
+        n = sums[c]
+        mean = sums[:c] / n
+        centred = xf - mean.view(shape)
+        var = all_reduce_sum((centred * centred).sum(dims), mesh) / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = centred * invstd.view(shape)
+        y = xhat * weight.to(ct).view(shape) + bias.to(ct).view(shape)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.mesh, ctx.n, ctx.dims, ctx.shape = mesh, n, dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        xhat, invstd, weight = ctx.saved_tensors
+        c, dims, shape = invstd.numel(), ctx.dims, ctx.shape
+        g = gy.to(xhat.dtype)
+        local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        sums = all_reduce_sum(local, ctx.mesh) / ctx.n
+        scale = (weight.to(xhat.dtype) * invstd).view(shape)
+        gx = scale * (g - sums[:c].view(shape) - xhat * sums[c:].view(shape))
+        return (gx.to(gy.dtype), local[c:].to(weight.dtype),
+                local[:c].to(weight.dtype), None, None)
 
 
 def global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                       weight: torch.Tensor, bias: torch.Tensor
                       ) -> torch.Tensor:
     """Train-mode flax BatchNorm of x (N, C, ...) over the global batch of
-    `bn.mesh`'s ranks, in float32: the per-channel sum of x and the row
-    count, then the sum of (x - mean)^2, each summed over the ranks inside
-    the autograd graph (so the backward crosses the ranks too); the biased
-    variance, as flax's, and the running statistics take the global mean
-    and variance, the same on every rank.
+    `bn.mesh`'s ranks (this process's rows off a mesh), in float32
+    (`_GlobalBatchNorm`); the running statistics take the global mean
+    and biased variance, the same on every rank.
 
     Two sums where flax takes one (E[x^2] - E[x]^2): that difference
     cancels, and its rounding, carried by Adam's sign-like first steps,
     put two ranks' second-step loss 8.8e-5 from one process's (NVIDIA
     H100 80GB HBM3, 700 W, the flagship's training widths at batch 1024);
-    with the centred sum the first two steps' losses were equal."""
-    c = x.shape[1]
-    dims = (0,) + tuple(range(2, x.ndim))
-    xf = x.float()
-    shape = (1, c) + (1,) * (x.ndim - 2)
-    sums = sum_over_ranks(torch.cat([
-        xf.sum(dims), xf.new_full((1,), xf.numel() // c)]), bn.mesh)
-    n = sums[c]
-    mean = sums[:c] / n
-    centred = xf - mean.view(shape)
-    var = sum_over_ranks((centred * centred).sum(dims), bn.mesh) / n
+    with the centred sum the first two steps' losses were equal.  One
+    process takes the same function: with torch's own BatchNorm there (one
+    `batch_norm` call, Welford's variance) two ranks' gradients landed 74
+    times the port-against-JAX gradient bounds from one process's at
+    batch 128 on the CPU, where the JAX package's meshes of 2 and 1 give
+    the same gradients; with this one on both, within 0.08 of them
+    (tests/test_torch_dist_drift.py)."""
+    y, mean, var = _GlobalBatchNorm.apply(x, weight, bias, bn.eps, bn.mesh)
     with torch.no_grad():
         m = bn.momentum
-        bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
-        bn.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+        bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1 - m).add_(var, alpha=m)
         bn.num_batches_tracked.add_(1)
-    scale = torch.rsqrt(var + bn.eps) * weight.float()
-    y = centred * scale.view(shape) + bias.float().view(shape)
-    return y.to(x.dtype)
+    return y
 
 
 def sync_batch_norms(net: nn.Module, mesh) -> None:

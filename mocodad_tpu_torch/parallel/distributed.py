@@ -10,10 +10,11 @@ the collectives itself:
   package's multi-process `shard_batch` does; random tensors are drawn at
   the global batch's size from the same seed on every rank, and each rank
   keeps its block, so the draws do not depend on the number of ranks;
-- sums over ranks (`all_reduce_sum`, and `sum_over_ranks`, which also
-  sums the gradient in the backward), the gradient sum of a train step
-  (`sum_gradients`), the gather of per-rank results into global order
-  (`all_gather_rows`) and the broadcast from rank 0 (`broadcast_`).
+- sums over ranks (`all_reduce_sum`; the BatchNorm's autograd Function,
+  `nn/stsgcn._GlobalBatchNorm`, calls it in its forward and backward),
+  the gradient sum of a train step (`sum_gradients`), the gather of
+  per-rank results into global order (`all_gather_rows`) and the
+  broadcast from rank 0 (`broadcast_`).
 
 A gloo group is given host tensors: a CUDA tensor is copied to the host,
 reduced there and copied back (two ranks that share one card run over
@@ -158,29 +159,6 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
                         copy=True)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf.to(t.device)
-
-
-class _SumOverRanks(torch.autograd.Function):
-    """all_reduce(SUM) whose backward is all_reduce(SUM) of the gradient:
-    each rank's output is the sum of every rank's input, so each input's
-    gradient is the sum of every rank's output gradient."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return all_reduce_sum(t, mesh)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_reduce_sum(grad.contiguous(), ctx.mesh), None
-
-
-def sum_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
-    """`all_reduce_sum` inside the autograd graph (the global BatchNorm
-    statistics): the backward crosses the ranks too."""
-    if not is_distributed(mesh):
-        return t
-    return _SumOverRanks.apply(t, mesh)
 
 
 def sum_gradients(params: Iterable[torch.Tensor], mesh) -> None:

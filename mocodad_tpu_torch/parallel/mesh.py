@@ -14,9 +14,10 @@ The backend follows from where the ranks are placed: NCCL when each rank
 has a GPU of its own, gloo on the CPU or when ranks share a card.  It is
 never a fallback: an NCCL failure raises.
 
-Not ported: `shard_grouped_batch` (the JAX package's several train steps
-per dispatch, which only amortize TPU dispatch; the port has no grouped
-path) and `batch_sharding` (a JAX placement object; `shard_batch` places).
+Not ported: `shard_grouped_batch` (several train steps per dispatch are
+single-process, in the JAX package as here, so a grouped batch is never
+sharded) and `batch_sharding` (a JAX placement object; `shard_batch`
+places).
 """
 
 from __future__ import annotations

@@ -9,10 +9,18 @@ copied to the device by a producer thread one or two batches ahead
 device until the pass ends, so the host does not wait on the card batch
 by batch.
 
+With the window pool (`device_data`, as JAX's `run_inference` at
+loop.py:366-385), the windows are copied to the device once and each
+batch sends only its rows' indices and views; the meta and frame numbers
+are gathered on the host in the producer thread.  A `PoolCache` keeps one
+dataset's pool across passes (each epoch's validation) and evicts it for
+another dataset.
+
 On a data-parallel `mesh` (parallel/), every rank's loader yields the same
 global batches; each rank scores its block of rows (B1 at (B/W)*S fold
 rows on the card) and at the end of the pass, not batch by batch, the
-losses (and poses) are gathered into global order on every rank.
+losses (and poses) are gathered into global order on every rank.  Every
+rank holds the whole pool, as JAX replicates it.
 `restore_and_infer` is each rank's eval and predict path.
 """
 
@@ -42,13 +50,75 @@ EVAL_DOMAIN_TAG = 0x45564C  # 'EVL'
 
 NoiseFn = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 
+# device_data 'auto' keeps a pool of at most this many GB on the device
+# (mocodad_tpu/training/loop.py:187)
+POOL_CAP_GB = 4.0
+
+
+def use_device_pool(ds: PoseWindows, device_data: Any = 'auto',
+                    pool_cap_gb: float = POOL_CAP_GB) -> bool:
+    """Whether `ds`'s windows go to the device as one pool, from the
+    `device_data` key (mocodad_tpu/training/loop.py:159-188): 'auto' when
+    the pool is at most `pool_cap_gb` GB, true/false to force.  The old_aug
+    path's per-item host-side crops need host batches: with 'auto' it takes
+    them, and an explicit true raises."""
+    mode = device_data
+    if isinstance(mode, str):
+        mode = mode.strip().lower()
+    truthy = mode in (True, 'true', 'on', 'yes', '1', 1)
+    falsy = mode in (False, 'false', 'off', 'no', '0', 0)
+    if not (truthy or falsy or mode == 'auto'):
+        raise ValueError(f'device_data must be auto/true/false, '
+                         f'got {mode!r}')
+    if falsy:
+        return False
+    if ds.old_aug:
+        if truthy:
+            raise ValueError(
+                'device_data: true is incompatible with the old_aug '
+                'dataset path (per-item host-side random crops need '
+                'materialized batches)')
+        return False
+    return truthy or ds.data.nbytes <= pool_cap_gb * 1e9
+
+
+def pool_options(cfg: Config) -> Dict[str, Any]:
+    """`run_inference`'s and `use_device_pool`'s pool keywords from cfg's
+    `device_data` and `device_data_cap_gb` keys."""
+    return {'device_data': cfg.extras.get('device_data', 'auto'),
+            'pool_cap_gb': float(cfg.extras.get('device_data_cap_gb',
+                                                POOL_CAP_GB))}
+
+
+class PoolCache:
+    """One dataset's window pool on the device at a time, keyed on its
+    host buffer by identity (the JAX Trainer's `_eval_pools`, loop.py:80-83,
+    :366-378): a pass over the same dataset reuses the pool, and another
+    dataset's evicts it.  The cache holds the host buffer, so its id()
+    cannot be recycled while the key stands."""
+
+    def __init__(self):
+        self._host: Optional[np.ndarray] = None
+        self._pool: Optional[torch.Tensor] = None
+        self.uploads = 0
+
+    def get(self, data: np.ndarray, device: torch.device) -> torch.Tensor:
+        if self._host is not data:
+            self._host = self._pool = None     # one pool on the device
+            self._pool = torch.as_tensor(data, device=device)
+            self._host = data
+            self.uploads += 1
+        return self._pool
+
 
 @torch.no_grad()
 def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
                   batch_size: int, seed: int, device: torch.device,
                   with_pose: Optional[bool] = None,
                   noise_fn: Optional[NoiseFn] = None,
-                  mesh=None) -> Dict[str, Any]:
+                  mesh=None, device_data: Any = 'auto',
+                  pool_cap_gb: float = POOL_CAP_GB,
+                  pools: Optional[PoolCache] = None) -> Dict[str, Any]:
     """Run generation over a dataset once.
 
     Returns host arrays with padding stripped: {'loss': (N,), 'pose':
@@ -64,6 +134,10 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
     On a `mesh`, `device` is the rank's, `noise_fn` gives the global
     batch's gaussians (n_rows = global B*S) and every rank returns the
     whole pass's results.
+
+    `device_data` and `pool_cap_gb` decide whether the windows go to the
+    device as one pool (`use_device_pool`); `pools`, when given, keeps
+    that pool for the next pass over the same dataset.
     """
     if with_pose is None:
         with_pose = model.model_return_value in ('pose', 'all')
@@ -79,15 +153,28 @@ def run_inference(model: MoCoDADModel, net: MoCoDADNet, ds: PoseWindows,
         (int(seed) << 24) ^ EVAL_DOMAIN_TAG)
     s = model.n_generated_samples
     keep = ('mask', 'trans', 'meta', 'frames')
+    pool = None
+    if use_device_pool(ds, device_data, pool_cap_gb):
+        pool = (pools or PoolCache()).get(ds.data, device)
 
     def place(b):
-        local = shard_batch({k: b[k] for k in ('data', 'trans')}, mesh)
-        return ({k: b[k] for k in keep}, to_device(local['data'], device),
+        if pool is None:
+            local = shard_batch({k: b[k] for k in ('data', 'trans')}, mesh)
+            return ({k: b[k] for k in keep}, to_device(local['data'], device),
+                    to_device(local['trans'], device))
+        # only the rows' indices and views cross; meta and frames are
+        # gathered here, in the producer thread
+        host = {'mask': b['mask'], 'trans': b['trans'],
+                'meta': ds.meta[b['idx']], 'frames': ds.frames[b['idx']]}
+        local = shard_batch({k: b[k] for k in ('idx', 'trans')}, mesh)
+        return (host, to_device(local['idx'], device),
                 to_device(local['trans'], device))
 
     pending = []
-    for i, (batch, data, trans) in enumerate(prefetch(
-            make_loader(ds, batch_size), place=place)):
+    for i, (batch, rows, trans) in enumerate(prefetch(
+            make_loader(ds, batch_size, yield_indices=pool is not None),
+            place=place)):
+        data = rows if pool is None else pool.index_select(0, rows)
         data = apply_affine_batch(data, mats, trans.long())
         noise = None if noise_fn is None else noise_fn(
             i, global_rows(data.shape[0], mesh) * s)
@@ -149,7 +236,8 @@ def restore_and_infer(cfg: Config, device=None,
     net.load_state_dict(sd, strict=True)
     net.to(dev).eval()
     res = run_inference(model, net, ds, cfg.batch_size, cfg.seed, dev,
-                        with_pose=with_pose, noise_fn=noise_fn, mesh=mesh)
+                        with_pose=with_pose, noise_fn=noise_fn, mesh=mesh,
+                        **pool_options(cfg))
     return model, ds, res
 
 

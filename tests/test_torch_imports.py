@@ -41,6 +41,7 @@ def test_import_leaves_jax_out():
         'import mocodad_tpu_torch.tools.perf.probe_dma_pipeline\n'
         'import mocodad_tpu_torch.eval, mocodad_tpu_torch.utils.tensors\n'
         'import mocodad_tpu_torch.training.loop\n'
+        'import mocodad_tpu_torch.training.step_graph\n'
         'import mocodad_tpu_torch.training.checkpoint\n'
         'import mocodad_tpu_torch.training.ema\n'
         'import mocodad_tpu_torch.data.prefetch\n'

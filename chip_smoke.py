@@ -6,8 +6,8 @@ Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
   2. build     every kernel source (csrc/denoiser.cu, denoiser_dma.cu,
                denoiser_grouped.cu, denoiser_tc.cu, denoiser_tc_dma.cu,
-               denoiser_tc_f32.cu, denoiser_tc_grouped.cu) with nvcc for
-               sm_90a, one nvcc each, all started together;
+               denoiser_tc_f32.cu, denoiser_tc_grouped.cu, denoiser_wg.cu)
+               with nvcc for sm_90a, one nvcc each, all started together;
   3. check     B1 in float32 (the 3xTF32 tensor-core kernel, and the FMA
                design kept as its yardstick) against its plain PyTorch
                version on the card, at N = 51,200 (the flagship fold, 1024
@@ -31,14 +31,17 @@ Phases, each printing one line:
                denoiser's device time, the rest of the device time, and the
                device's idle share of the pass;
   8. check_bf16, check_grouped, check_dma
-               B1 at bfloat16, B2 (bfloat16) and B3 (float32 and
-               bfloat16), each on the tensor cores and in the FMA design
-               kept as its yardstick, against their plain versions at
-               both N;
+               B1 at bfloat16 (the wgmma kernel, and the mma.sync kernel
+               and the FMA design kept as its yardsticks), B2 (bfloat16)
+               and B3 (float32 and bfloat16), each on the tensor cores and
+               in the FMA design kept as its yardstick, against their
+               plain versions at both N;
   9. time_bf16, time_grouped, time_dma
                ms per forward at N = 51,200 of each, its plain version's,
                its bound, and B1's at the same dtype in the same run
-               (time_bf16 also the FMA design's, fma_bf16_ms); B2 and B3
+               (time_bf16: the wgmma kernel, the mma.sync kernel and the
+               FMA design timed in turns, each with its bound share, and
+               the wgmma build's registers and spills); B2 and B3
                are timed by their probe scripts
                (mocodad_tpu_torch/tools/perf/), whose runs are those
                kernels' paths and count their launches, beside their FMA
@@ -70,9 +73,13 @@ Phases, each printing one line:
                turns;
  17. check_frames B1 float32 and bfloat16 against their plain versions at
                T = 4 and 6 frames (the U-Net of inject with 2 conditioning
-               frames, and of concat), at both N;
- 18. time_frames B1's ms per call at T = 6 and N = 51,200 at both dtypes,
-               beside their bounds, their shares and the plain version's;
+               frames, and of concat), and B1 bfloat16 (the wgmma kernel
+               and its mma.sync yardstick) also at T = 1, 2 and 5, at both
+               N;
+ 18. time_frames B1's ms per call at T = 6 and N = 51,200 at both dtypes
+               (bfloat16: the wgmma kernel and its mma.sync yardstick in
+               turns), beside their bounds, their shares and the plain
+               version's;
  19. main_concat the flagship architecture with `conditioning_strategy:
                concat` (the U-Net at T = 6) through `restore_and_infer`,
                as 5, B1 float32 only;
@@ -204,6 +211,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -238,7 +246,7 @@ from mocodad_tpu_torch.tools.perf.common import (
     BF16_MAX_REL, BF16_MEAN_REL, BN_FED_BIASES, GRAPH_STEP1_RTOL,
     N_ROWS as N_FOLD, PATH_ATOL, PATH_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_MEAN,
     TRAIN_STEP_MAX, card_line, device_busy, device_noise, fold_inputs,
-    plain_denoiser, rel_errors, time_ms)
+    in_turns, plain_denoiser, rel_errors, time_ms)
 from mocodad_tpu_torch.data import (affine_transform_matrices,
                                     apply_affine_batch, make_loader,
                                     to_device)
@@ -274,7 +282,9 @@ TRAIN_LR = 1e-3
 # every kernel wrapper by its name in the kernels JSON line
 KERNELS = {
     'denoiser': P.DENOISER, 'denoiser_f32_fma': P.DENOISER_F32_FMA,
-    'denoiser_bf16': P.DENOISER_BF16, 'denoiser_bf16_fma': P.DENOISER_BF16_FMA,
+    'denoiser_bf16': P.DENOISER_BF16,
+    'denoiser_bf16_mma': P.DENOISER_BF16_MMA,
+    'denoiser_bf16_fma': P.DENOISER_BF16_FMA,
     'denoiser_grouped': G.GROUPED, 'denoiser_grouped_fma': G.GROUPED_FMA,
     'denoiser_dma_f32': D.DMA_PIPELINED_F32,
     'denoiser_dma_f32_fma': D.DMA_PIPELINED_F32_FMA,
@@ -325,6 +335,16 @@ def check_main_launches(counts: dict, kernel: str, n_batches: int,
         raise RuntimeError(f'kernel launches on the {what} main path: '
                            f'{counts}, expected 9 x {n_batches} of '
                            f'{kernel} only')
+
+
+def ptxas_usage(source: str) -> tuple:
+    """(registers, spill store bytes) of the most demanding kernel in
+    ptxas's report on this process's build of `source` (phase 2 builds
+    with -Xptxas=-v); (None, None) if it was not built here."""
+    log = build.LOGS.get(source, '')
+    regs = [int(v) for v in re.findall(r'Used (\d+) registers', log)]
+    spills = [int(v) for v in re.findall(r'(\d+) bytes spill stores', log)]
+    return (max(regs) if regs else None, max(spills) if spills else None)
 
 
 def const_bytes(mats: torch.Tensor, vecs: torch.Tensor) -> int:
@@ -917,6 +937,14 @@ def agree_pool_phase(ds, cfg, noise, net, runs, card: str) -> dict:
 # random_imp and no_condition at seg_len 6)
 FRAMES = {4: dict(conditioning_indices=[0, 1]),
           6: dict(conditioning_strategy='concat')}
+# and the other frame counts B1 at bfloat16 is checked at: inject with 5,
+# 4 or 1 of 6 frames conditioning (T = 1, 2, 5)
+BF16_FRAMES = {1: dict(conditioning_indices=[0, 1, 2, 3, 4]),
+               2: dict(conditioning_indices=[0, 1, 2, 3]),
+               5: dict(conditioning_indices=[0]), **FRAMES}
+# B1 at bfloat16 and its mma.sync yardstick, with their plans
+BF16_TC = (('denoiser_bf16', P.DENOISER_BF16, P.wg_plan),
+           ('denoiser_bf16_mma', P.DENOISER_BF16_MMA, P.tc_plan))
 # the other paths of `generate`, each on the flagship's other settings
 STRATEGY_PATHS = (
     ('inbetween_imp', dict(conditioning_strategy='inbetween_imp',
@@ -933,43 +961,51 @@ def seeded_model(seed: int = 0, frames: Optional[int] = None, **kw):
     """(model, eval-mode net on the card) of the flagship architecture
     with 50 samples, at `frames` U-Net frames (FRAMES) and `kw`."""
     model = M.MoCoDADModel(flagship_config(
-        n_generated_samples=50, **FRAMES.get(frames, {}), **kw))
+        n_generated_samples=50, **BF16_FRAMES.get(frames, {}), **kw))
     net = M.seeded_state(model.build_net(), seed=seed).to('cuda').eval()
     return model, net
 
 
 def check_frames_phase(g) -> dict:
-    """Phase 17; returns each kernel's max |diff| at T = 6, N = 51,200."""
+    """Phase 17 (B1 float32 at T = 4 and 6, bfloat16 at T = 1, 2, 4, 5 and
+    6); returns each kernel's max |diff| by (kernel, T, N)."""
     errs = {}
-    for t in sorted(FRAMES):
+    for t in sorted(BF16_FRAMES):
         model, net = seeded_model(frames=t)
         folded = model.fold(net)
         for n in (N_FOLD, N_RAGGED):
             x, semb = fold_inputs(folded, n, g)
-            got = P.DENOISER(x, semb, folded)
-            torch.cuda.synchronize()
-            err, ok = max_rel_excess(got, P.denoise_reference(x, semb, folded),
-                                     KERNEL_RTOL, KERNEL_ATOL)
-            phase('check_frames', frames=t, kernel='denoiser', n=n,
-                  rows=P.tc32_plan(folded, x.device).rows, max_abs_err=err,
-                  rtol=KERNEL_RTOL, atol=KERNEL_ATOL, ok=ok)
+            if t in FRAMES:
+                got = P.DENOISER(x, semb, folded)
+                torch.cuda.synchronize()
+                err, ok = max_rel_excess(
+                    got, P.denoise_reference(x, semb, folded), KERNEL_RTOL,
+                    KERNEL_ATOL)
+                phase('check_frames', frames=t, kernel='denoiser', n=n,
+                      rows=P.tc32_plan(folded, x.device).rows,
+                      max_abs_err=err, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                      ok=ok)
+                if not ok:
+                    raise RuntimeError(f'B1 disagrees with its plain version '
+                                       f'at T={t}, N={n}')
+                errs[('denoiser', t, n)] = err
             xb = x.bfloat16()
-            got16 = P.DENOISER_BF16(xb, semb, folded)
-            torch.cuda.synchronize()
-            err16, mx, mean, ok16 = bf16_check(
-                got16, P.denoise_reference(xb, semb, folded,
-                                           compute_dtype=torch.bfloat16),
-                BF16_MAX_REL, BF16_MEAN_REL)
-            phase('check_frames', frames=t, kernel='denoiser_bf16', n=n,
-                  rows=P.tc_plan(folded, x.device).rows, max_abs_err=err16,
-                  max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
-                  bound_max_rel=BF16_MAX_REL, bound_mean_rel=BF16_MEAN_REL,
-                  ok=ok16)
-            if not (ok and ok16):
-                raise RuntimeError(f'B1 disagrees with its plain version at '
-                                   f'T={t}, N={n}')
-            errs[('denoiser', t, n)], errs[('denoiser_bf16', t, n)] = \
-                err, err16
+            want16 = P.denoise_reference(xb, semb, folded,
+                                         compute_dtype=torch.bfloat16)
+            for key, kernel, plan in BF16_TC:
+                got16 = kernel(xb, semb, folded)
+                torch.cuda.synchronize()
+                err16, mx, mean, ok16 = bf16_check(got16, want16,
+                                                   BF16_MAX_REL, BF16_MEAN_REL)
+                phase('check_frames', frames=t, kernel=key, n=n,
+                      rows=plan(folded, x.device).rows, max_abs_err=err16,
+                      max_rel=f'{mx:.3e}', mean_rel=f'{mean:.3e}',
+                      bound_max_rel=BF16_MAX_REL,
+                      bound_mean_rel=BF16_MEAN_REL, ok=ok16)
+                if not ok16:
+                    raise RuntimeError(f'{key} disagrees with its plain '
+                                       f'version at T={t}, N={n}')
+                errs[(key, t, n)] = err16
     return errs
 
 
@@ -982,14 +1018,17 @@ def time_frames_phase(g, peaks, card: str) -> dict:
     xb = x.bfloat16()
     flops = denoiser_flops_per_row(folded) * N_FOLD
     out = {}
+    # B1 at bfloat16 and its mma.sync yardstick in turns
+    bf16_ms = dict(zip((key for key, _, _ in BF16_TC), in_turns(
+        *(lambda k=k: k(xb, semb, folded) for _, k, _ in BF16_TC))))
     for key, kernel, xin, plan in (
             ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device)),
-            ('denoiser_bf16', P.DENOISER_BF16, xb,
-             P.tc_plan(folded, x.device))):
-        ms = time_ms(lambda: kernel(xin, semb, folded))
+            *((key, k, xb, plan(folded, x.device))
+              for key, k, plan in BF16_TC)):
+        ms = bf16_ms.get(key) or time_ms(lambda: kernel(xin, semb, folded))
         plain_ms = time_ms(lambda: P.denoise_reference(
             xin, semb, folded, compute_dtype=xin.dtype))
-        b_ms, b_by = b1_bound(folded, N_FOLD, key == 'denoiser_bf16',
+        b_ms, b_by = b1_bound(folded, N_FOLD, key != 'denoiser',
                               plan.blob.numel(), peaks)
         phase('time_frames', frames=6, kernel=key, n=N_FOLD,
               kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
@@ -1129,8 +1168,8 @@ def time_fold_phase(folded, g, peaks, card: str, n: int) -> dict:
     out = {}
     for key, kernel, xin, plan in (
             ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device)),
-            ('denoiser_bf16', P.DENOISER_BF16, x.bfloat16(),
-             P.tc_plan(folded, x.device))):
+            *((key, k, x.bfloat16(), plan(folded, x.device))
+              for key, k, plan in BF16_TC)):
         want = P.denoise_reference(xin, semb, folded, compute_dtype=xin.dtype)
         got = kernel(xin, semb, folded)
         torch.cuda.synchronize()
@@ -1142,7 +1181,7 @@ def time_fold_phase(folded, g, peaks, card: str, n: int) -> dict:
         ms = time_ms(lambda: kernel(xin, semb, folded))
         plain_ms = time_ms(lambda: P.denoise_reference(
             xin, semb, folded, compute_dtype=xin.dtype))
-        b_ms, b_by = b1_bound(folded, n, key == 'denoiser_bf16',
+        b_ms, b_by = b1_bound(folded, n, key != 'denoiser',
                               plan.blob.numel(), peaks)
         phase('time', n=n, kernel=key, max_abs_err=err, ok=ok,
               kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
@@ -2479,6 +2518,8 @@ def main() -> int:
             cases = (
                 ('check_bf16', 'denoiser_bf16',
                  lambda: P.DENOISER_BF16(xb, semb, folded), b1_plain),
+                ('check_bf16', 'denoiser_bf16_mma',
+                 lambda: P.DENOISER_BF16_MMA(xb, semb, folded), b1_plain),
                 ('check_bf16', 'denoiser_bf16_fma',
                  lambda: P.DENOISER_BF16_FMA(xb, semb, folded), b1_plain),
                 ('check_grouped', 'denoiser_grouped',
@@ -2522,21 +2563,32 @@ def main() -> int:
         blob16 = P.tc_plan(folded, dev).blob.numel()
         bf16_bytes = 2 * 2 * x.numel() + 4 * semb.numel() + blob16
         b_ms, b_by = b1_bound(folded, N_FOLD, True, blob16, peaks)
-        bf_ms = time_ms(lambda: P.DENOISER_BF16(xb, semb, folded))
-        fma_ms = time_ms(lambda: P.DENOISER_BF16_FMA(xb, semb, folded))
+        bf_ms, mma_ms, fma_ms = in_turns(
+            lambda: P.DENOISER_BF16(xb, semb, folded),
+            lambda: P.DENOISER_BF16_MMA(xb, semb, folded),
+            lambda: P.DENOISER_BF16_FMA(xb, semb, folded))
         bf_plain = time_ms(lambda: P.denoise_reference(
             xb, semb, folded, compute_dtype=torch.bfloat16))
+        regs, spills = ptxas_usage(P.DENOISER_BF16.source)
         phase('time_bf16', n=N_FOLD, kernel_ms=f'{bf_ms:.4f}',
-              fma_bf16_ms=f'{fma_ms:.4f}', plain_ms=f'{bf_plain:.4f}',
-              bound_ms=f'{b_ms:.4f}', bound_by=b_by,
-              bound_share=f'{b_ms / bf_ms:.4f}',
+              mma_bf16_ms=f'{mma_ms:.4f}', fma_bf16_ms=f'{fma_ms:.4f}',
+              plain_ms=f'{bf_plain:.4f}', bound_ms=f'{b_ms:.4f}',
+              bound_by=b_by, bound_share=f'{b_ms / bf_ms:.4f}',
+              mma_bound_share=f'{b_ms / mma_ms:.4f}',
+              fma_bound_share=f'{b_ms / fma_ms:.4f}',
+              wg_registers=regs, wg_spill_bytes=spills,
               mbytes=f'{bf16_bytes / 1e6:.2f}',
               b1_f32_ms=f'{kernel_ms:.4f}',
               kernel_tflops=f'{flops / bf_ms / 1e9:.2f}', card=repr(card))
         entries['denoiser_bf16'] = dict(
             dtype='bfloat16', path='main, eval_dtype bfloat16',
-            source=CSRC + 'denoiser_tc.cu', replaces=B1,
+            source=CSRC + 'denoiser_wg.cu', replaces=B1,
             max_abs_err=bf16_errs[('denoiser_bf16', N_FOLD)], ms=bf_ms,
+            plain_ms=bf_plain, bound_ms=b_ms, bound_by=b_by)
+        entries['denoiser_bf16_mma'] = dict(
+            dtype='bfloat16', path='yardstick of denoiser_bf16, no main path',
+            source=CSRC + 'denoiser_tc.cu', replaces=B1,
+            max_abs_err=bf16_errs[('denoiser_bf16_mma', N_FOLD)], ms=mma_ms,
             plain_ms=bf_plain, bound_ms=b_ms, bound_by=b_by)
         entries['denoiser_bf16_fma'] = dict(
             dtype='bfloat16', path='yardstick of denoiser_bf16, no main path',
@@ -2644,8 +2696,9 @@ def main() -> int:
         check_main_launches(counts, 'denoiser_bf16', n_batches, 'bfloat16')
         entries['denoiser_bf16']['launches'] = launches16
         # the yardsticks: their launches on the main paths (checked 0)
-        for key in ('denoiser_bf16_fma', 'denoiser_grouped_fma',
-                    'denoiser_dma_f32_fma', 'denoiser_dma_bf16_fma'):
+        for key in ('denoiser_bf16_mma', 'denoiser_bf16_fma',
+                    'denoiser_grouped_fma', 'denoiser_dma_f32_fma',
+                    'denoiser_dma_bf16_fma'):
             entries[key]['launches'] = counts[key]
 
         # 11. the bfloat16 path through the kernel and the plain version
@@ -2722,11 +2775,11 @@ def main() -> int:
         train_agree_phase(rcfg, build_dataset(rcfg, split='train'),
                           name='train_agree_random_imp', steps=1,
                           order=order, grad_floor=2e-2)
-        for key in ('denoiser', 'denoiser_bf16'):
+        for key in ('denoiser', 'denoiser_bf16', 'denoiser_bf16_mma'):
             ms, plain_ms, b_ms, b_by = frame_times[key]
             entries[key].update(
                 t6_path='main_concat / agree_concat_bf16',
-                t6_launches=concat_launches[key], t6_ms=ms,
+                t6_launches=concat_launches.get(key, 0), t6_ms=ms,
                 t6_plain_ms=plain_ms, t6_bound_ms=b_ms, t6_bound_by=b_by,
                 t6_max_abs_err=frame_errs[(key, 6, N_FOLD)])
 
@@ -2738,6 +2791,7 @@ def main() -> int:
             entries[key].update(serve_phase(cfg, net, poses, dtype, card),
                                 serve_path='serve / serve_bf16',
                                 **serve_times[key])
+        entries['denoiser_bf16_mma'].update(serve_times['denoiser_bf16_mma'])
         serve_bound_phase(cfg, net, poses, card)
         checkpoint_phase(cfg, net, poses[:len(poses) // 4])
         config = cli_config(cfg, work)

@@ -49,6 +49,11 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f'lib{stem}-{h.hexdigest()[:16]}.so')
 
 
+# nvcc's output for each source this process built (with `verbose`,
+# ptxas's registers and spills per kernel)
+LOGS: Dict[str, str] = {}
+
+
 def build_all(sources: Iterable[str], verbose: bool = False) -> List[str]:
     """Compile every `csrc/<source>` whose build does not exist, one nvcc
     per source, all started together; returns the paths.  Raises
@@ -71,8 +76,9 @@ def build_all(sources: Iterable[str], verbose: bool = False) -> List[str]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for cmd, tmp, out, proc in running:
+    for (source, _), (cmd, tmp, out, proc) in zip(todo, running):
         log, _ = proc.communicate()
+        LOGS[source] = log
         if proc.returncode != 0:
             failed.append(f'{" ".join(cmd)}\n{log}')
             continue

@@ -20,11 +20,13 @@ matrices rounded to bfloat16 as `_fold_gcn` / `_fold_joint` store them,
 biases and affines float32).  `denoise` routes by device: a CPU tensor
 goes to `denoise_reference` at x's dtype; a CUDA tensor launches a
 tensor-core kernel (`DENOISER`, `csrc/denoiser_tc_f32.cu`, 3xTF32, for
-float32 x; `DENOISER_BF16`, `csrc/denoiser_tc.cu`, for bfloat16 x), or
-raises.  `DENOISER_F32_FMA` and `DENOISER_BF16_FMA` (`csrc/denoiser.cu`'s
-two entries) are the FMA design of B1, kept as the tensor-core kernels'
-yardsticks; `pack_for_tc_f32_kernel` and `pack_for_tc_kernel` lay out the
-tensor-core kernels' constants.
+float32 x; `DENOISER_BF16`, `csrc/denoiser_wg.cu`, its channel mixes on
+wgmma, for bfloat16 x), or raises.  `DENOISER_F32_FMA` and
+`DENOISER_BF16_FMA` (`csrc/denoiser.cu`'s two entries) are the FMA design
+of B1, and `DENOISER_BF16_MMA` (`csrc/denoiser_tc.cu`, every product on
+mma.sync) the earlier bfloat16 tensor-core design, kept as the tensor-core
+kernels' yardsticks; `pack_for_tc_f32_kernel`, `pack_for_wg_kernel` and
+`pack_for_tc_kernel` lay out their constants.
 
 The grouped (B2, `ops/grouped_unet.py`) and DMA-pipelined (B3,
 `ops/dma_unet.py`) kernels compute the same function from the same packed
@@ -500,7 +502,8 @@ def constants_as(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 class SharedMemoryError(ValueError):
-    """A kernel's plan does not fit one block's shared memory."""
+    """A kernel's plan does not fit one block's shared memory (or, for the
+    warpgroup kernel, the K steps its build of those rows holds)."""
 
 
 def check_smem(what: str, smem_bytes: int) -> None:
@@ -688,6 +691,26 @@ def tc_channels(folded: FoldedDenoiser) -> List[int]:
     return chans
 
 
+def layer_vectors(b: '_Blob', w: GcnW, cop: int, e_dim: int,
+                  emb_w: List[np.ndarray], emb_b: List[np.ndarray]
+                  ) -> Dict[str, int]:
+    """An ST-GCNN layer's bias and slope appended to its block `b`, and
+    its W_e (C_out padded to `cop`, E) as bf16 bits and b_e appended to
+    `emb_w` and `emb_b`; returns the record's 'bias', 'slope' and 'emb'
+    (the layer's first column among the embeddings so far)."""
+    co = w.w2.shape[0]
+    fields = dict(bias=b.vec(w.bias, cop),
+                  slope=b.add(np.float32([w.slope])),
+                  emb=sum(a.shape[0] for a in emb_w))
+    we = np.zeros((cop, e_dim), np.uint16)
+    we[:co] = bf16_bits(w.we2)
+    eb = np.zeros(cop, np.float32)
+    eb[:co] = w.eb.detach().cpu().float().numpy()
+    emb_w.append(we)
+    emb_b.append(eb)
+    return fields
+
+
 def tc_ops(folded: FoldedDenoiser, lo: int = 0, hi: Optional[int] = None,
            rows: int = TC_ROWS, round_g: bool = False
            ) -> Tuple[List[dict], List['_Blob'], List[np.ndarray],
@@ -726,15 +749,7 @@ def tc_ops(folded: FoldedDenoiser, lo: int = 0, hi: Optional[int] = None,
                      w_stride=tc_stride(ci))
             if w.wr2 is not None:
                 o['wr'] = b.tile(w.wr2, cop, tc_stride(ci))
-            o.update(bias=b.vec(w.bias, cop),
-                     slope=b.add(np.float32([w.slope])),
-                     emb=sum(a.shape[0] for a in emb_w))
-            we = np.zeros((cop, e_dim), np.uint16)
-            we[:co] = bf16_bits(w.we2)
-            eb = np.zeros(cop, np.float32)
-            eb[:co] = w.eb.detach().cpu().float().numpy()
-            emb_w.append(we)
-            emb_b.append(eb)
+            o.update(layer_vectors(b, w, cop, e_dim, emb_w, emb_b))
         else:
             j = folded.joint[i]
             o.update(nt=pad16(ci) // 8, nsplit=1,
@@ -821,10 +836,25 @@ def pack_for_tc_kernel(folded: FoldedDenoiser,
     if rows is None:
         return most_rows(lambda r: pack_for_tc_kernel(folded, r),
                          TC_ROW_COUNTS)
+    return bf16_tile_plan(folded, *tc_ops(folded, rows=rows), rows, TC_OP,
+                          TC_MAX_TABLE, 4 * TC_MAX_TABLE,
+                          'tensor-core denoiser')
+
+
+def bf16_tile_plan(folded: FoldedDenoiser, ops: List[dict],
+                   blocks: List['_Blob'], emb_w: List[np.ndarray],
+                   emb_b: List[np.ndarray], rows: int,
+                   fields: Sequence[str], max_table: int, static_bytes: int,
+                   what: str) -> TcPlan:
+    """B1's bfloat16 kernels' shared-memory plan (TC_HEADER) around their
+    op records `ops` (the `fields` of each, in order) and blocks: two
+    weight buffers of the largest op's size, the stacked W_e and b_e,
+    every layer's embedding, then `rows` row areas (`tc_row_plan`); raises
+    SharedMemoryError unless it fits beside the kernel's `static_bytes` of
+    static shared memory, and the table within `max_table` ints."""
     seq = layer_sequence(folded)
     e_dim, cin = folded.embedding_dim, folded.c_in
     chans = tc_channels(folded)
-    ops, blocks, emb_w, emb_b = tc_ops(folded, rows=rows)
     off, row_bytes = tc_row_plan(
         ops, [('x', tc_act_bytes(seq[0][2], cin)),
               ('d1', tc_act_bytes(seq[2][3], chans[3])),
@@ -837,8 +867,8 @@ def pack_for_tc_kernel(folded: FoldedDenoiser,
     emb_off = embw_off + embw.size
     row0 = emb_off + rows * emb_stride * 4
     smem_bytes = row0 + rows * row_bytes
-    # the kernel also holds the table in static shared memory
-    check_smem('tensor-core denoiser', smem_bytes + 4 * TC_MAX_TABLE)
+    # the kernel also holds the table (and more) in static shared memory
+    check_smem(what, smem_bytes + static_bytes)
     header = dict(nops=len(ops), e=e_dim, cin=cin, tva=seq[0][2],
                   tvap=pad16(seq[0][2]), row0=row0, row_bytes=row_bytes,
                   x_off=off['x'], x_stride=tc_stride(cin),
@@ -848,10 +878,10 @@ def pack_for_tc_kernel(folded: FoldedDenoiser,
                   embw_bytes=embw.size, wbuf0=0, wbuf1=wbuf,
                   out_off=ops[-1]['out'], out_stride=ops[-1]['out_stride'])
     table = [header[k] for k in TC_HEADER] + \
-        [int(o[k]) for o in ops for k in TC_OP]
-    if len(table) > TC_MAX_TABLE:
-        raise ValueError(f'the tensor-core denoiser reads at most '
-                         f'{TC_MAX_TABLE} table entries, got {len(table)}')
+        [int(o[k]) for o in ops for k in fields]
+    if len(table) > max_table:
+        raise ValueError(f'the {what} reads at most {max_table} table '
+                         f'entries, got {len(table)}')
     blob = np.concatenate([p for b in blocks + [embw] for p in b.parts])
     return TcPlan(blob=torch.from_numpy(blob),
                   table=torch.tensor(table, dtype=torch.int32),
@@ -863,6 +893,145 @@ def tc_plan(folded: FoldedDenoiser, device: torch.device) -> TcPlan:
     built once."""
     return cached_plan(folded, ('denoiser_tc',), device,
                        lambda: pack_for_tc_kernel(folded))
+
+
+# ---------------------------------------------------------------------------
+# The warpgroup kernel's constants and shared-memory plan
+# (csrc/denoiser_wg.cu, B1 at bfloat16 on wgmma)
+# ---------------------------------------------------------------------------
+
+# must match the enums in csrc/denoiser_wg.cu (checked when it loads): the
+# header is TC_HEADER; an op record is TC_OP's fields, with `w_stride` the
+# bytes of W (and Wr) per 16 input channels, then `kmask`
+WG_OP = TC_OP + ('kmask',)
+WG_ROW_COUNTS = (4, 2)               # its builds: fold rows per tile
+WG_WARPS = 16                        # warps per block (kWarps)
+WG_MAX_TABLE = 512                   # ints of table it copies (kMaxTable)
+WG_STATIC_SMEM = 4 * WG_MAX_TABLE + 16   # the table and two mbarriers
+WG_MAX_KS = 7                        # 16-position K steps it holds in
+                                     # registers (kMaxKs): T*V up to 112
+WG_SHORT_KS = 4                      # the most its 4-row build holds
+                                     # (kShortKs)
+WG_UNIT_TILES = (2, 4, 8)            # 8-channel tiles per wgmma (N 16-64)
+WG_MAX_NT8_KS = WG_SHORT_KS          # K steps beside 8 of them (kMaxNt8Ks)
+# wgmma's K-major B operand without swizzle (kLbo, kSbo): 8x8 core matrices
+# of 16-byte rows, the two along K (input channels) WG_LBO bytes apart,
+# successive 8-row groups along N (output channels) WG_SBO bytes apart
+WG_LBO, WG_SBO = 128, 256
+
+
+def wg_unit_tiles(ks: int) -> Tuple[int, ...]:
+    """The wgmma widths (8-channel tiles) the kernel builds beside `ks` K
+    steps: 64 channels only up to WG_MAX_NT8_KS, where the 32 accumulators
+    still fit beside K's fragments."""
+    return tuple(t for t in WG_UNIT_TILES if t < 8 or ks <= WG_MAX_NT8_KS)
+
+
+def wg_nsplit(ks: int, nt: int) -> int:
+    """Parts of C_out (8 nt channels) for one ST-GCNN layer: the fewest,
+    so each wgmma is as wide as the build allows beside `ks` K steps.
+    Each part recomputes its units' graph mix and split, and the ops are
+    bound by the instructions the sub-partitions issue, not by the
+    warpgroups busy: d3_1 in one part on two warpgroups ran faster than
+    in two on four (`PERF.md`)."""
+    for ns in (1, 2, 4, 8):
+        if nt % ns == 0 and nt // ns in wg_unit_tiles(ks):
+            return ns
+    raise ValueError(f'the warpgroup denoiser cannot split {8 * nt} output '
+                     f'channels into wgmmas of '
+                     f'{[8 * t for t in wg_unit_tiles(ks)]}')
+
+
+def k_block_masks(k_bits: np.ndarray, mt: int, ks: int) -> np.ndarray:
+    """Per 16-position output tile of a graph operator's bf16 bits (at
+    least (16 mt, 16 ks)), the bit mask of its 16x16 blocks along the
+    input positions that hold a nonzero entry (-0 is zero), as int32."""
+    nz = (k_bits[:16 * mt, :16 * ks] & 0x7fff).reshape(
+        mt, 16, ks, 16).any(axis=(1, 3))
+    return (nz * (1 << np.arange(ks))).sum(axis=1).astype(np.int32)
+
+
+def wg_b_tiles(m: torch.Tensor, cop: int, cip: int) -> np.ndarray:
+    """A channel mix W (C_out, C_in) as wgmma's B operand, zero padded to
+    (cop, cip): per 16 input channels, per 8 output channels, the two 8x8
+    core matrices (input channels 0-7, then 8-15), each 8 rows of 16
+    bytes; (cip / 16, cop / 8, 2, 8, 8) bf16 bits, so that 16 input
+    channels span 32 * cop bytes."""
+    t = np.zeros((cop, cip), np.uint16)
+    bits = bf16_bits(m)
+    t[:bits.shape[0], :bits.shape[1]] = bits
+    return t.reshape(cop // 8, 8, cip // 16, 2, 8).transpose(2, 0, 3, 1, 4)
+
+
+def wg_ops(folded: FoldedDenoiser, rows: int
+           ) -> Tuple[List[dict], List['_Blob'], List[np.ndarray],
+                      List[np.ndarray]]:
+    """The warpgroup kernel's op records for B1's ops (arena offsets
+    unset), each op's constants as one _Blob, and the layers' W_e and b_e
+    (as `tc_ops`).  A block holds the graph operator K as `tc_ops` does
+    (ldmatrix reads it), its nonzero 16x16 blocks per output tile
+    (`k_block_masks`), and for an ST-GCNN layer W and Wr in wgmma's layout
+    (`wg_b_tiles`); C_out in as few parts as the wgmma widths allow
+    (`wg_nsplit`)."""
+    e_dim = folded.embedding_dim
+    chans = tc_channels(folded)
+    ops, blocks, emb_w, emb_b = [], [], [], []
+    for k, (kind, i, tvi, tvo) in enumerate(layer_sequence(folded)):
+        b = _Blob()
+        ci, co = chans[k], chans[k + 1]
+        mt, ks = pad16(tvo) // 16, pad16(tvi) // 16
+        most = WG_SHORT_KS if rows == 4 else WG_MAX_KS
+        if ks > most:
+            raise SharedMemoryError(
+                f'the warpgroup denoiser holds at most {16 * most} input '
+                f'positions in registers at {rows} rows, got {tvi}')
+        kmat = folded.gcn[i].k2 if kind == 0 else folded.joint[i].d2
+        o = dict(kind=kind, tvi=tvi, tvo=tvo, mt=mt, ks=ks, ci=pad16(ci),
+                 res=0, k=b.tile(kmat, pad16(tvo), tc_stride(tvi)),
+                 k_stride=tc_stride(tvi), w=-1, w_stride=0, wr=-1, bias=-1,
+                 slope=-1, rs=-1, rt=-1, emb=-1)
+        kbits = np.zeros((pad16(tvo), pad16(tvi)), np.uint16)
+        kbits[:tvo, :tvi] = bf16_bits(kmat)
+        o['kmask'] = b.add(k_block_masks(kbits, mt, ks))
+        if kind == 0:
+            w = folded.gcn[i]
+            cop, res = pad16(co), w.wr2 is not None
+            o.update(nt=cop // 8, res=int(res),
+                     nsplit=wg_nsplit(ks, cop // 8),
+                     w=b.add(wg_b_tiles(w.w2, cop, pad16(ci))),
+                     w_stride=32 * cop)
+            if res:
+                o['wr'] = b.add(wg_b_tiles(w.wr2, cop, pad16(ci)))
+            o.update(layer_vectors(b, w, cop, e_dim, emb_w, emb_b))
+        else:
+            j = folded.joint[i]
+            o.update(nt=pad16(ci) // 8, nsplit=1,
+                     rs=b.vec(j.rs, pad16(tvo)), rt=b.vec(j.rt, pad16(tvo)))
+        o.update(blob=sum(x.size for x in blocks), blob_bytes=b.size,
+                 c_in=ci, c_out=co)
+        blocks.append(b)
+        ops.append(o)
+    return ops, blocks, emb_w, emb_b
+
+
+def pack_for_wg_kernel(folded: FoldedDenoiser,
+                       rows: Optional[int] = None) -> TcPlan:
+    """Lay the folded constants out for `csrc/denoiser_wg.cu` (`wg_ops`)
+    and plan its shared memory as `pack_for_tc_kernel` does, for `rows`
+    fold rows per tile: by default the most of WG_ROW_COUNTS that fit (4
+    up to T = 3 frames at 17 joints, 2 at T = 4 to 6)."""
+    if rows is None:
+        return most_rows(lambda r: pack_for_wg_kernel(folded, r),
+                         WG_ROW_COUNTS)
+    return bf16_tile_plan(folded, *wg_ops(folded, rows), rows, WG_OP,
+                          WG_MAX_TABLE, WG_STATIC_SMEM, 'warpgroup denoiser')
+
+
+def wg_plan(folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+    """The warpgroup kernel's packed constants and table on `device`,
+    built once."""
+    return cached_plan(folded, ('denoiser_wg',), device,
+                       lambda: pack_for_wg_kernel(folded))
 
 
 # ---------------------------------------------------------------------------
@@ -1360,6 +1529,26 @@ class TensorCoreDenoiserKernel:
         return out
 
 
+class WarpgroupDenoiserKernel(TensorCoreDenoiserKernel):
+    """Wrapper of `csrc/denoiser_wg.cu`, B1 at bfloat16 with its channel
+    mixes on wgmma: bfloat16 x and eps, float32 silu_emb.  `launches`
+    counts the kernel launches this process made through it, and nothing
+    else."""
+
+    source = 'denoiser_wg.cu'
+    symbol = 'mocodad_denoiser_wg_launch'
+    prefix = 'mocodad_denoiser_wg'
+
+    def constants(self) -> Dict[str, int]:
+        return {'row_counts': row_mask(WG_ROW_COUNTS),
+                'warps_per_block': WG_WARPS, 'max_table': WG_MAX_TABLE,
+                'header_len': len(TC_HEADER), 'op_len': len(WG_OP),
+                'max_ks': WG_MAX_KS, 'short_ks': WG_SHORT_KS}
+
+    def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+        return wg_plan(folded, device)
+
+
 class TensorCoreF32DenoiserKernel(TensorCoreDenoiserKernel):
     """Wrapper of `csrc/denoiser_tc_f32.cu`, B1 at float32 on the tensor
     cores as 3xTF32: float32 x, silu_emb and eps.  `launches` counts the
@@ -1379,12 +1568,15 @@ class TensorCoreF32DenoiserKernel(TensorCoreDenoiserKernel):
         return tc32_plan(folded, device)
 
 
-# B1 at each dtype: the tensor-core kernel on the main path, and the FMA
-# design of csrc/denoiser.cu kept as its yardstick (timed beside it, never
-# on a main path)
+# B1 at each dtype: the tensor-core kernel on the main path, and the
+# earlier designs kept as its yardsticks (timed beside it, never on a main
+# path): at float32 the FMA design of csrc/denoiser.cu; at bfloat16 the
+# mma.sync kernel (csrc/denoiser_tc.cu, whose op code B2 and B3 share) and
+# the FMA design
 DENOISER = TensorCoreF32DenoiserKernel()
 DENOISER_F32_FMA = DenoiserKernel(torch.float32)
-DENOISER_BF16 = TensorCoreDenoiserKernel()
+DENOISER_BF16 = WarpgroupDenoiserKernel()
+DENOISER_BF16_MMA = TensorCoreDenoiserKernel()
 DENOISER_BF16_FMA = DenoiserKernel(torch.bfloat16)
 
 

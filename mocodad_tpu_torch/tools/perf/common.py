@@ -8,7 +8,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import subprocess
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -140,6 +140,17 @@ def time_ms(fn: Callable[[], object], repeats: int = REPEATS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(*fns: Callable[[], object], repeats: int = REPEATS
+             ) -> List[float]:
+    """ms per call of each of `fns` timed in turns in one process (a b ..
+    b a, `time_ms` each time): the mean of each one's two readings."""
+    order = list(range(len(fns)))
+    ms = [[] for _ in fns]
+    for i in order + order[::-1]:
+        ms[i].append(time_ms(fns[i], repeats))
+    return [sum(m) / len(m) for m in ms]
 
 
 def rel_errors(got: torch.Tensor, want: torch.Tensor

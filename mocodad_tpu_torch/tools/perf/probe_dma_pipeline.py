@@ -9,7 +9,8 @@ Counterpart of the JAX repository's `tools/perf/probe_dma_pipeline.py`
 batch, 1024 windows x 50 samples), in the same run: B3 on the tensor cores
 (`DMA_PIPELINED` at bfloat16, `DMA_PIPELINED_F32` at float32), its FMA
 design (`DMA_PIPELINED_FMA`, `DMA_PIPELINED_F32_FMA`) and B1 on the tensor
-cores (`DENOISER_BF16`, `DENOISER`).  Weights are the flagship U-Net's,
+cores whose op code B3 runs (`DENOISER_BF16_MMA`, the mma.sync kernel,
+and `DENOISER`).  Weights are the flagship U-Net's,
 from a seed.  Needs a CUDA device.
 
     python -m mocodad_tpu_torch.tools.perf.probe_dma_pipeline \
@@ -49,7 +50,8 @@ def probe(dtype: torch.dtype = torch.bfloat16, n: int = N_ROWS,
     kernel, fma = {torch.bfloat16: (D.DMA_PIPELINED, D.DMA_PIPELINED_FMA),
                    torch.float32: (D.DMA_PIPELINED_F32,
                                    D.DMA_PIPELINED_F32_FMA)}[dtype]
-    b1 = {torch.bfloat16: P.DENOISER_BF16, torch.float32: P.DENOISER}[dtype]
+    b1 = {torch.bfloat16: P.DENOISER_BF16_MMA,
+          torch.float32: P.DENOISER}[dtype]
     name = str(dtype)[6:]
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     x, semb = fold_inputs(folded, N_PARITY, g)

@@ -8,7 +8,8 @@ Counterpart of the JAX repository's `tools/perf/probe_grouped_pallas.py`
 dtype on 2,048 rows, and time one forward of each at N = 51,200 rows (one
 flagship batch, 1024 windows x 50 samples), in the same run: B2 on the
 tensor cores (`GROUPED`), its FMA design (`GROUPED_FMA`) and B1 bfloat16 on
-the tensor cores (`DENOISER_BF16`).  Then each group's ms (CUDA events
+the tensor cores whose op code B2 splits (`DENOISER_BF16_MMA`, the
+mma.sync kernel).  Then each group's ms (CUDA events
 around each launch, the median over the timed forwards) beside the
 activation bytes it moves (its inputs and silu_emb read once, its outputs
 written once) and the MMAs it issues (`grouped_unet.mmas_per_row`), with
@@ -66,7 +67,7 @@ def probe(n: int = N_ROWS, repeats: int = REPEATS, seed: int = 0) -> dict:
     xb, sb = x.bfloat16(), semb.bfloat16()
     got = G.GROUPED(xb, sb, folded)
     forwards = 1
-    want = P.DENOISER_BF16(xb, sb.float(), folded)
+    want = P.DENOISER_BF16_MMA(xb, sb.float(), folded)
     torch.cuda.synchronize()
     err, max_rel, mean_rel = rel_errors(got, want)
     print(f'parity vs B1 bf16 at N={N_PARITY}: max|d| {err:.5f} '
@@ -80,7 +81,7 @@ def probe(n: int = N_ROWS, repeats: int = REPEATS, seed: int = 0) -> dict:
     ms = time_ms(lambda: G.GROUPED(xb, sb, folded), repeats)
     forwards += 2 + repeats
     fma_ms = time_ms(lambda: G.GROUPED_FMA(xb, sb, folded), repeats)
-    b1_ms = time_ms(lambda: P.DENOISER_BF16(xb, s32, folded), repeats)
+    b1_ms = time_ms(lambda: P.DENOISER_BF16_MMA(xb, s32, folded), repeats)
     plan = G.grouped_tc_plan(folded, dev)
     rows = [gp.rows for gp in plan.groups]
     print(f'grouped, tensor cores (5 kernels, rows per tile {rows}): '

@@ -1,17 +1,25 @@
 """Probe: where a tile's time goes inside a tensor-core denoiser
-(`csrc/denoiser_tc.cu`, B1 at bfloat16, or `csrc/denoiser_tc_f32.cu`, B1
-at float32 as 3xTF32).
+(B1 at bfloat16: `csrc/denoiser_wg.cu`, the main path's, and
+`csrc/denoiser_tc.cu`, the mma.sync yardstick; or `csrc/denoiser_tc_f32.cu`,
+B1 at float32 as 3xTF32).
 
 Writes a copy of the source with clock64() counters around each phase of
 a tile (the loads of x and silu_emb, the embeddings, every op, the store)
 and, inside the ST-GCNN layers, around warp 0's MMA chunk loops and
-epilogues; builds it with nvcc beside the package's builds; runs one call
-at N = 51,200 rows on the flagship U-Net (weights from a seed) and prints
-thread 0's cycles per tile for each phase, averaged over every block's
-tiles.  Thread 0 (warp 0) always has a unit of work and arrives last at
-each barrier, so an op's cycles are its critical path.  The counters
-themselves add a little; the probe also prints the instrumented call's
-ms beside the plain build's.  With `--variants` (float32) it then builds
+epilogues (and, at bfloat16, the graph mixes inside the loops: the
+channel mixes are the rest of the loops); builds it with nvcc beside the
+package's builds; runs one call at N = 51,200 rows on the flagship U-Net
+(weights from a seed) and prints thread 0's cycles per tile for each
+phase, averaged over every block's tiles.  At bfloat16 both kernels run
+in one process, the breakdown per kernel: graph mixes, channel mixes,
+joint re-scalings, epilogues, staging and barriers (the wait for each
+op's constants and the barrier before it), loads, embeddings and the
+store.  Thread 0 (warp 0) always has a unit of work and arrives last at
+each barrier, so an op's cycles are its critical path.  A counter reads
+the clock when an MMA has been issued, not when its result lands: a
+wait for results counts where the next instruction needs them.  The
+counters themselves add a little; the probe also prints the instrumented
+call's ms beside the plain build's.  With `--variants` (float32) it then builds
 the kernel for other warp counts, chunk widths and joint routes
 (VARIANTS: warps per block, input channels per graph-mix chunk, the joint
 re-scalings as dense 3xTF32 products or on the FMA units) and times them
@@ -41,15 +49,27 @@ from mocodad_tpu_torch.tools.perf.common import (N_ROWS, flagship_fold,
 
 N_SLOTS = 64
 # counter slots: op k at 2k (its barrier) and 2k + 1 (thread 0's work)
-LOAD, STORE, CHUNKS, EPILOGUES, EMBED = 40, 41, 44, 45, 46
+LOAD, STORE, CHUNKS, EPILOGUES, EMBED, GRAPH = 40, 41, 44, 45, 46, 47
 
 
 def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
-             units: str, stored: str):
+             units: str, epilogue: str, stored: str, graph: str = ''):
     """(anchor, replacement) pairs for a source whose namespace, tile load,
-    embedding call, wait for an op's constants, op call, ST-GCNN unit loop
-    and end of the ST-GCNN store differ."""
-    return (
+    embedding call, wait for an op's constants, op call, ST-GCNN unit loop,
+    start and end of the ST-GCNN epilogue and (optional) graph mix call
+    differ; `epilogue` may be `stored` (an epilogue in one call)."""
+    one = epilogue == stored
+    start = ('    long long tb = clock64();\n'
+             '    if (warp == 0 && lane == 0) atomicAdd(&g_prof[44], '
+             '(unsigned long long)(tb - ta));\n')
+    end = ('    if (warp == 0 && lane == 0) atomicAdd(&g_prof[45], '
+           '(unsigned long long)(clock64() - tb));\n'
+           '    ta = clock64();\n')
+    timed = ((graph,
+              '      long long tg = clock64();\n' + graph +
+              '\n      if (warp == 0 && lane == 0) atomicAdd(&g_prof[47], '
+              '(unsigned long long)(clock64() - tg));'),) if graph else ()
+    return timed + (
         (f'namespace {namespace} {{\nnamespace {{\n',
          f'namespace {namespace} {{\n'
          '__device__ unsigned long long g_prof[64];\nnamespace {\n'),
@@ -80,22 +100,13 @@ def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
          '    if (tid == 0) atomicAdd(&g_prof[41], (unsigned long long)'
          '(clock64() - ts));'),
         (units, '  long long ta = clock64();\n' + units),
-        ('    // epilogue: (+ f), + bias, PReLU',
-         '    long long tb = clock64();\n'
-         '    if (warp == 0 && lane == 0) atomicAdd(&g_prof[44], '
-         '(unsigned long long)(tb - ta));\n'
-         '    // epilogue: (+ f), + bias, PReLU'),
-        (stored,
-         stored +
-         '    if (warp == 0 && lane == 0) atomicAdd(&g_prof[45], '
-         '(unsigned long long)(clock64() - tb));\n'
-         '    ta = clock64();\n'),
-    )
+    ) + (((stored, start + stored + '\n' + end),) if one else
+         ((epilogue, start + epilogue), (stored, stored + end)))
 
 
 # per source: (file, namespace, patches)
 SOURCES = {
-    'bf16': ('denoiser_tc.cu', 'mocodad_tc', _patches(
+    'mma': ('denoiser_tc.cu', 'mocodad_tc', _patches(
         'mocodad_tc', '    load_tile<kRows>(tid, sm, t, x, semb, n, n0);',
         '    embed_all<kRows>(tid, sm, t, kRows);',
         '      cp_async_wait_all();\n'
@@ -104,8 +115,28 @@ SOURCES = {
         '      run_op<false>(tid, sm, t, ops + op * O_LEN, wbuf[buf], '
         'kRows);',
         '  for (int u = warp; u < rows * mt * ns; u += kWarps) {',
+        '    // epilogue: (+ f), + bias, PReLU',
         '            p < tvo ? pack(acc[j][2 * h], acc[j][2 * h + 1]) : 0u;\n'
-        '      }\n    }\n')),
+        '      }\n    }\n',
+        '      graph_mix(g, k_base, k_st, f_base, in_st, m0, c0, ks, lane);')),
+    'wg': ('denoiser_wg.cu', 'mocodad_wg', _patches(
+        'mocodad_wg', '    load_tile<kRows>(tid, sm, t, x, semb, n, n0);',
+        '    embed_all<kRows>(tid, sm, t, kRows);',
+        '      mbar_wait(bar[buf], parity >> buf & 1);\n'
+        '      parity ^= 1u << buf;\n'
+        '      __syncthreads();   // this op\'s constants and the last op\'s '
+        'output',
+        '      wg_run_op<kRows>(tid, sm, t, ops + op * O_LEN, wbuf[buf], '
+        'kRows);',
+        '  for (int v = warp >> 2; v < groups * ns; v += kGroups) {',
+        '    if (live) store_gcn<NT>(acc, sm, t, d, wb, row, r, m0, o0, lane, '
+        'res);',
+        '    if (live) store_gcn<NT>(acc, sm, t, d, wb, row, r, m0, o0, lane, '
+        'res);',
+        '      graph_mix_k<KS>(g[0], kf, mask, f_base, in_st, c0, lane);\n'
+        '      if (nc == 2)\n'
+        '        graph_mix_k<KS>(g[1], kf, mask, f_base, in_st, c0 + 16, '
+        'lane);')),
     'f32': ('denoiser_tc_f32.cu', 'mocodad_tc32', _patches(
         'mocodad_tc32',
         '    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n'
@@ -119,6 +150,7 @@ SOURCES = {
         '      run_op<kRows>(tid, sm, t, ops + op * O_LEN, '
         'sm + (buf ? wb1 : wb0));',
         '  for (int u = warp; u < kRows * mt * ns; u += kWarps) {',
+        '    // epilogue: (+ f), + bias, PReLU',
         '                    : make_float2(0.f, 0.f);\n      }\n    }\n')),
 }
 READER = '''
@@ -143,9 +175,9 @@ def inline_headers(src: str) -> str:
     return re.sub(r'#include "(\w+\.cuh)"\n', text, src)
 
 
-def instrumented_source(which: str = 'bf16') -> str:
-    """The source (`which`: 'bf16' or 'f32') with the counters; raises if it
-    no longer has an anchor the probe patches."""
+def instrumented_source(which: str = 'wg') -> str:
+    """The source (`which`: 'wg', 'mma' or 'f32') with the counters; raises
+    if it no longer has an anchor the probe patches."""
     name, namespace, patches = SOURCES[which]
     with open(os.path.join(build.CSRC_DIR, name)) as f:
         src = inline_headers(f.read())
@@ -177,9 +209,12 @@ def _setup(which: str, n: int, seed: int, warps: int = P.TC32_WARPS):
     folded = flagship_fold(dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x, semb = fold_inputs(folded, n, g)
-    if which == 'bf16':
-        return P.DENOISER_BF16, x.bfloat16(), semb, P.tc_plan(folded, dev), \
+    if which == 'wg':
+        return P.DENOISER_BF16, x.bfloat16(), semb, P.wg_plan(folded, dev), \
             folded
+    if which == 'mma':
+        return P.DENOISER_BF16_MMA, x.bfloat16(), semb, \
+            P.tc_plan(folded, dev), folded
     return P.DENOISER, x, semb, P.tc32_plan(folded, dev, warps), folded
 
 
@@ -196,8 +231,9 @@ def _caller(lib, kernel, x, semb, plan, n):
     return call, out
 
 
-def probe(n: int = N_ROWS, seed: int = 0, which: str = 'bf16') -> dict:
-    """Cycles per tile of each phase; prints one line each."""
+def probe(n: int = N_ROWS, seed: int = 0, which: str = 'wg') -> dict:
+    """Cycles per tile of each phase of one kernel ('wg', 'mma' or 'f32');
+    prints one line each."""
     kernel, x, semb, plan, folded = _setup(which, n, seed)
     lib = build_variant(f'{os.path.splitext(SOURCES[which][0])[0]}_phases',
                         instrumented_source(which))
@@ -222,28 +258,36 @@ def probe(n: int = N_ROWS, seed: int = 0, which: str = 'bf16') -> dict:
               'gcn_epilogues': c[EPILOGUES]}
     for k, name in enumerate(names):
         result['ops'][name] = (c[2 * k], c[2 * k + 1])
-        print(f'{name:8s} barrier {c[2 * k]:8.0f}  work {c[2 * k + 1]:8.0f} '
-              f'cycles per tile', flush=True)
+        print(f'[{which}] {name:8s} barrier {c[2 * k]:8.0f}  work '
+              f'{c[2 * k + 1]:8.0f} cycles per tile', flush=True)
     total = sum(b + w for b, w in result['ops'].values()) + c[LOAD] + \
         c[STORE] + c[EMBED]
     joint = sum(w for nm, (_, w) in result['ops'].items()
                 if nm in P.JOINT_LAYERS)
-    result.update(total=total, joint_ops=joint)
-    print(f'per tile of {rows} rows: loads {c[LOAD]:.0f}, embeddings '
-          f'{c[EMBED]:.0f}, store {c[STORE]:.0f}; ST-GCNN MMA chunk loops '
-          f'{c[CHUNKS]:.0f}, their epilogues {c[EPILOGUES]:.0f}; joint ops '
-          f'{joint:.0f}; total {total:.0f} cycles', flush=True)
+    barriers = sum(b for b, _ in result['ops'].values())
+    result.update(total=total, joint_ops=joint, barriers=barriers)
+    graph = ''
+    if which != 'f32':
+        result.update(graph_mixes=c[GRAPH],
+                      channel_mixes=c[CHUNKS] - c[GRAPH])
+        graph = (f' (graph mixes {c[GRAPH]:.0f}, channel mixes '
+                 f'{c[CHUNKS] - c[GRAPH]:.0f})')
+    print(f'[{which}] per tile of {rows} rows: loads {c[LOAD]:.0f}, '
+          f'embeddings {c[EMBED]:.0f}, store {c[STORE]:.0f}; ST-GCNN MMA '
+          f'chunk loops {c[CHUNKS]:.0f}{graph}, their epilogues '
+          f'{c[EPILOGUES]:.0f}; joint ops {joint:.0f}; staging and '
+          f'barriers {barriers:.0f}; total {total:.0f} cycles', flush=True)
     result['ms'] = time_ms(call)
     result['plain_build_ms'] = time_ms(lambda: kernel(x, semb, folded))
-    print(f'instrumented {result["ms"]:.4f} ms, uninstrumented '
+    print(f'[{which}] instrumented {result["ms"]:.4f} ms, uninstrumented '
           f'{result["plain_build_ms"]:.4f} ms per call at N={n}',
           flush=True)
     return result
 
 
 def _records(plan, which):
-    header, op = (P.TC_HEADER, P.TC_OP) if which == 'bf16' else \
-        (P.TC32_HEADER, P.TC32_OP)
+    header, op = {'wg': (P.TC_HEADER, P.WG_OP), 'mma': (P.TC_HEADER, P.TC_OP),
+                  'f32': (P.TC32_HEADER, P.TC32_OP)}[which]
     table = plan.table.cpu().numpy()
     nh, no = len(header), len(op)
     h = dict(zip(header, table[:nh]))
@@ -463,9 +507,12 @@ def main(argv=None) -> int:
     ap.add_argument('--variants', action='store_true',
                     help='float32: also time the warp and chunk variants')
     args = ap.parse_args(argv)
-    which = 'bf16' if args.dtype == 'bfloat16' else 'f32'
-    probe(args.n, which=which)
-    if which == 'f32' and args.variants:
+    if args.dtype == 'bfloat16':
+        for which in ('wg', 'mma'):
+            probe(args.n, which=which)
+        return 0
+    probe(args.n, which='f32')
+    if args.variants:
         compare_variants(n=args.n)
     return 0
 

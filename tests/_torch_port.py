@@ -279,24 +279,32 @@ def tc_op(sm, h, o, rows_at, wb, round_g):
             = to_bits(y)
 
 
-def tc_ops(sm, h, ops, blob, rows_at, round_g):
+def tc_ops(sm, h, ops, blob, rows_at, round_g, op_fn=None):
     """Every op in turn, its constants copied from the blob into the two
-    weight buffers alternately."""
+    weight buffers alternately; `op_fn(sm, h, o, rows_at, wb)` in place of
+    `tc_op`."""
     for k, o in enumerate(ops):
         wb = h['wbuf0'] if k % 2 == 0 else h['wbuf1']
         sm[wb:wb + o['blob_bytes']] = blob[o['blob']:o['blob'] +
                                            o['blob_bytes']]
-        tc_op(sm, h, o, rows_at, wb, round_g)
+        if op_fn is None:
+            tc_op(sm, h, o, rows_at, wb, round_g)
+        else:
+            op_fn(sm, h, o, rows_at, wb)
 
 
-def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
+def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None,
+               ops=None, op_fn=None):
     """csrc/denoiser_tc.cu (B1 bfloat16) on one tile of plan.rows fold rows
     from row n0 of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as
     bytes that start as NaN (0xff), the constants copied from the blob,
     x and silu_emb rounded to bf16, the ops as `tc_op`.  Returns eps
     (C_in, T*V, rows) for the rows below N: bf16(f + x), or with
-    `round_eps` False f + x in float32 (csrc/denoiser_tc_dma.cu, B3)."""
-    h, ops = table_records(plan.table, P.TC_HEADER)
+    `round_eps` False f + x in float32 (csrc/denoiser_tc_dma.cu, B3).
+    Another kernel on the same header gives its op records `ops` and its
+    `op_fn` (`emulate_wg`)."""
+    h, recs = table_records(plan.table, P.TC_HEADER)
+    ops = recs if ops is None else ops
     blob = plan.blob.numpy()
     sm = np.full(smem_bytes or plan.smem_bytes, 0xff, np.uint8)
     rows, n = plan.rows, x.shape[2]
@@ -313,7 +321,7 @@ def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
     sm[h['embw_off']:h['embw_off'] + h['embw_bytes']] = \
         blob[h['embw_blob']:h['embw_blob'] + h['embw_bytes']]
     tc_embed(sm, h, rows_at)
-    tc_ops(sm, h, ops, blob, rows_at, round_g=False)
+    tc_ops(sm, h, ops, blob, rows_at, round_g=False, op_fn=op_fn)
     eps = np.zeros((cin, tva, nv))
     for r in range(nv):
         out = from_bits(smem_tile(sm, rows_at[r] + h['out_off'], h['tvap'],
@@ -328,4 +336,97 @@ def emulate_tc(plan, x, semb, n0=0, round_eps=True, smem_bytes=None):
 def emulate_tc_all(plan, x, semb, **kw):
     n = x.shape[2]
     return np.concatenate([emulate_tc(plan, x, semb, n0, **kw)
+                           for n0 in range(0, n, plan.rows)], axis=2)
+
+
+# ---------------------------------------------------------------------------
+# The warpgroup kernel (csrc/denoiser_wg.cu): W and Wr read back through
+# a model of wgmma's shared-memory matrix descriptor
+# ---------------------------------------------------------------------------
+
+def wg_descriptor(addr, lbo=P.WG_LBO, sbo=P.WG_SBO):
+    """wgmma's 64-bit shared-memory matrix descriptor as the kernel builds
+    it (b_desc): the start address >> 4 in bits 0-13, the leading byte
+    offset >> 4 in bits 16-29, the stride byte offset >> 4 in bits 32-45,
+    base offset 0 and layout type 0 (no swizzle, bits 62-63)."""
+    addr = int(addr)
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32)
+
+
+def wg_b_operand(sm, desc, n):
+    """The (16, n) B operand (K = 16 input channels, n output channels)
+    that a K-major descriptor without swizzle addresses in shared memory:
+    8x8 core matrices of 16-byte rows, element (k, j) at start + (j // 8)
+    stride offset + (k // 8) leading offset + (j % 8) 16 + (k % 8) 2."""
+    assert desc >> 46 == 0, 'base offset and swizzle must be 0'
+    start = (desc & 0x3FFF) << 4
+    lbo, sbo = ((desc >> 16) & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    k, j = np.arange(16)[:, None], np.arange(n)[None, :]
+    off = start + j // 8 * sbo + k // 8 * lbo + j % 8 * 16 + k % 8 * 2
+    return from_bits(sm[off].astype(np.uint16) |
+                     (sm[off + 1].astype(np.uint16) << 8))
+
+
+def wg_weight(sm, wb, o, off):
+    """W^T or Wr^T (C_in padded, C_out padded) of an op record, chunk by
+    chunk and part by part as the kernel's descriptors read it."""
+    ntu = o['nt'] // o['nsplit']
+    return np.block([[wg_b_operand(sm, wg_descriptor(
+        wb + off + c0 // 16 * o['w_stride'] + o0 // 8 * P.WG_SBO), 8 * ntu)
+        for o0 in range(0, 8 * o['nt'], 8 * ntu)]
+        for c0 in range(0, o['ci'], 16)])
+
+
+def wg_op(sm, h, o, rows_at, wb):
+    """One op record of the warpgroup kernel over the tile's rows: the
+    graph mix over the blocks of K in the op's masks only, W and Wr read
+    through their descriptors, otherwise `tc_op`'s arithmetic (g split
+    into bf16 hi + lo)."""
+    es = h['emb_stride']
+    mt, ks = o['mt'], o['ks']
+    tvop, tvip = 16 * mt, 16 * ks
+    ci, cop = o['ci'], 8 * o['nt']
+    kop = from_bits(smem_tile(sm, wb + o['k'], tvop, o['k_stride'])[:, :tvip])
+    masks = sm[wb + o['kmask']:wb + o['kmask'] + 4 * mt].view(np.int32)
+    keep = (masks[:, None] >> np.arange(ks)[None, :]) & 1
+    kop = kop * np.repeat(np.repeat(keep, 16, axis=0), 16, axis=1)
+    for r, at in enumerate(rows_at):
+        f = from_bits(smem_tile(sm, at + o['in'], tvip,
+                                o['in_stride'])[:, :ci])
+        g = (kop @ f).astype(np.float32)                 # (TVo_p, Ci_p)
+        if o['kind'] == 0:
+            wt = wg_weight(sm, wb, o, o['w'])
+            hi = bf16(g)
+            y = (hi @ wt + bf16(g - hi) @ wt).astype(np.float32).astype(
+                np.float64)
+            if o['res']:
+                y = y + f[:tvop] @ wg_weight(sm, wb, o, o['wr'])
+            else:
+                y = y + f[:tvop, :cop]
+            emb = smem_f32(sm, h['emb_off'] + (r * es + o['emb']) * 4, cop)
+            y = y + smem_f32(sm, wb + o['bias'], cop)
+            slope = smem_f32(sm, wb + o['slope'], 1)[0]
+            y = bf16(np.where(y >= 0, y, slope * y) + emb)
+        else:
+            y = bf16(g * smem_f32(sm, wb + o['rs'], tvop)[:, None]
+                     + smem_f32(sm, wb + o['rt'], tvop)[:, None])
+            if o['skip'] >= 0:
+                y = bf16(y + from_bits(smem_tile(
+                    sm, at + o['skip'], tvop, o['skip_stride'])[:, :ci]))
+        y[o['tvo']:] = 0
+        smem_tile(sm, at + o['out'], tvop, o['out_stride'])[:, :y.shape[1]] \
+            = to_bits(y)
+
+
+def emulate_wg(plan, x, semb, n0=0):
+    """csrc/denoiser_wg.cu on one tile of plan.rows fold rows from row n0,
+    as `emulate_tc` with the ops as `wg_op`; eps (C_in, T*V, rows) for the
+    rows below N."""
+    ops = table_records(plan.table, P.TC_HEADER, P.WG_OP)[1]
+    return emulate_tc(plan, x, semb, n0, ops=ops, op_fn=wg_op)
+
+
+def emulate_wg_all(plan, x, semb):
+    n = x.shape[2]
+    return np.concatenate([emulate_wg(plan, x, semb, n0)
                            for n0 in range(0, n, plan.rows)], axis=2)

@@ -203,8 +203,10 @@ def test_bf16_cpu_tensor_goes_to_the_plain_version(weights):
 
 def test_phase_probe_instruments_the_source():
     """tools/perf/probe_tc_phases.py finds every anchor it patches in
-    csrc/denoiser_tc.cu, once each."""
+    csrc/denoiser_tc.cu and csrc/denoiser_wg.cu, once each (the graph mix
+    counter included)."""
     from mocodad_tpu_torch.tools.perf import probe_tc_phases
-    src = probe_tc_phases.instrumented_source()
-    assert src.count('atomicAdd(&g_prof[') == 7
-    assert 'mocodad_probe_read' in src
+    for which in ('mma', 'wg'):
+        src = probe_tc_phases.instrumented_source(which)
+        assert src.count('atomicAdd(&g_prof[') == 8
+        assert 'mocodad_probe_read' in src

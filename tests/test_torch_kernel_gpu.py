@@ -1,7 +1,7 @@
 """The CUDA denoiser kernels on the card, against their plain versions:
-B1 in float32 and bfloat16, B2 (grouped, bfloat16) and B3 (DMA-pipelined,
-float32 and bfloat16), each on the tensor cores and in the FMA design kept
-as its yardstick.
+B1 in float32 and bfloat16 (the wgmma kernel and its mma.sync yardstick),
+B2 (grouped, bfloat16) and B3 (DMA-pipelined, float32 and bfloat16), each
+on the tensor cores and in the FMA design kept as its yardstick.
 
 These tests need a CUDA device and skip without one (the kernel has no
 CPU mode).  They import neither JAX nor the JAX package, so they also run
@@ -155,11 +155,11 @@ def test_bf16_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n + 1)
     xb = x.bfloat16()
     kernels = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
-               P.DENOISER_BF16_FMA)
+               P.DENOISER_BF16_MMA, P.DENOISER_BF16_FMA)
     before = [k.launches for k in kernels]
     got = P.denoise(xb, semb, folded)
     assert [k.launches for k in kernels] == \
-        [before[0], before[1], before[2] + 1, before[3]]
+        [before[0], before[1], before[2] + 1, before[3], before[4]]
     assert got.dtype == torch.bfloat16
     want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -193,8 +193,28 @@ def test_tc_wrapper_rejects_what_the_kernel_does_not_take(folded):
 
 
 def test_tc_library_runs_on_the_tensor_cores(folded):
-    """The built library's SASS holds HMMA (mma.sync) instructions."""
-    assert 'HMMA' in _sass(P.DENOISER_BF16)
+    """The mma.sync yardstick's SASS holds HMMA (mma.sync) instructions."""
+    assert 'HMMA' in _sass(P.DENOISER_BF16_MMA)
+
+
+def test_wg_library_runs_on_warpgroup_mma(folded):
+    """The bfloat16 main path's library holds HGMMA (wgmma) instructions
+    with bf16 inputs and f32 sums, and its graph mixes' bf16 HMMAs."""
+    sass = _sass(P.DENOISER_BF16)
+    assert re.search(r'HGMMA\.64x(16|32|64)x16\.F32\.BF16', sass)
+    assert re.search(r'HMMA\.16816\.F32\.BF16', sass)
+
+
+@pytest.mark.parametrize('n', NS)
+def test_bf16_mma_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 9)
+    xb = x.bfloat16()
+    before = P.DENOISER_BF16_MMA.launches
+    got = P.DENOISER_BF16_MMA(xb, semb, folded)
+    assert P.DENOISER_BF16_MMA.launches == before + 1
+    want = P.denoise_reference(xb, semb, folded, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
 
 
 @pytest.mark.parametrize('n', NS)
@@ -246,9 +266,9 @@ def test_dma_kernel_matches_plain_version(folded, dtype, n):
                                    rtol=0, atol=0)
     else:
         _bf16_close(got, want)
-        # B1 bfloat16's ops on its plan; only eps is left unrounded
+        # the mma.sync B1's ops on its plan; only eps is left unrounded
         torch.testing.assert_close(
-            got.bfloat16(), P.DENOISER_BF16(x.bfloat16(), semb, folded),
+            got.bfloat16(), P.DENOISER_BF16_MMA(x.bfloat16(), semb, folded),
             rtol=0, atol=0)
 
 
@@ -333,8 +353,15 @@ FRAMES = {4: dict(conditioning_indices=[0, 1]),
           6: dict(conditioning_strategy='concat')}
 
 
+# and the other frame counts B1 at bfloat16 takes: inject with 5, 4 or 1
+# conditioning frames of six
+BF16_FRAMES = {1: dict(conditioning_indices=[0, 1, 2, 3, 4]),
+               2: dict(conditioning_indices=[0, 1, 2, 3]), 3: {},
+               5: dict(conditioning_indices=[0]), **FRAMES}
+
+
 def _model_at(t):
-    cfg = flagship_config(n_generated_samples=4, **FRAMES[t])
+    cfg = flagship_config(n_generated_samples=4, **BF16_FRAMES[t])
     model = MoCoDADModel(cfg)
     net = seeded_state(model.build_net(), seed=t).to('cuda').eval()
     return model, net
@@ -361,6 +388,27 @@ def test_both_kernels_at_more_frames(folded, t, n):
                                            compute_dtype=torch.bfloat16))
     assert P.tc_plan(fold, x.device).rows == 2
     assert P.tc32_plan(fold, x.device).rows == (2 if t == 4 else 1)
+
+
+@pytest.mark.parametrize('t', sorted(BF16_FRAMES))
+def test_wg_kernel_at_every_frame_count(folded, t):
+    """B1 bfloat16 (the wgmma kernel, 4 rows per tile up to T = 3, 2 above)
+    and its mma.sync yardstick against the plain version at T = 1-6 at a
+    ragged N."""
+    model, net = _model_at(t)
+    fold = model.fold(net)
+    assert fold.n_frames == t
+    g = torch.Generator(device='cuda').manual_seed(t + 40)
+    xb = torch.randn((2, 17 * t, 1031), generator=g, device='cuda').bfloat16()
+    semb = torch.nn.functional.silu(
+        torch.randn((16, 1031), generator=g, device='cuda'))
+    want = P.denoise_reference(xb, semb, fold, compute_dtype=torch.bfloat16)
+    for kernel in (P.DENOISER_BF16, P.DENOISER_BF16_MMA):
+        got = kernel(xb, semb, fold)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _bf16_close(got, want)
+    assert P.wg_plan(fold, xb.device).rows == (4 if t <= 3 else 2)
 
 
 def test_generate_concat_runs_through_the_kernel(folded):

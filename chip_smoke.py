@@ -6,25 +6,30 @@ Phases, each printing one line:
   1. card      nvidia-smi's name and power limit, torch and CUDA versions;
   2. build     every kernel source (csrc/denoiser.cu, denoiser_dma.cu,
                denoiser_grouped.cu, denoiser_tc.cu, denoiser_tc_dma.cu,
-               denoiser_tc_f32.cu, denoiser_tc_grouped.cu, denoiser_wg.cu)
-               with nvcc for sm_90a, one nvcc each, all started together;
-  3. check     B1 in float32 (the 3xTF32 tensor-core kernel, and the FMA
-               design kept as its yardstick) against its plain PyTorch
-               version on the card, at N = 51,200 (the flagship fold, 1024
-               windows x 50 samples) and at a ragged N;
-  4. time      B1 float32's ms per call at N = 51,200 (kernel_ms, and the
-               FMA design's fma_f32_ms) and the plain version's, beside the
-               least time the card could take: 3xTF32 on the tensor cores
-               (bound_ms) and the function on the FMA units
-               (fma_bound_ms); then B1 at both dtypes at the serve path's
-               N = 12,800 (256 window-views x 50 samples), checked against
-               the plain version, timed and bounded, and at a rank's
+               denoiser_tc_f32.cu, denoiser_tc_grouped.cu, denoiser_wg.cu,
+               denoiser_wg_f32.cu) with nvcc for sm_90a, one nvcc each,
+               all started together;
+  3. check     B1 in float32 (the 3xTF32 kernel with its channel mixes on
+               wgmma, and the mma.sync kernel and the FMA design kept as
+               its yardsticks) against its plain PyTorch version on the
+               card, at N = 51,200 (the flagship fold, 1024 windows x 50
+               samples) and at a ragged N;
+  4. time      B1 float32's ms per call at N = 51,200: the wgmma kernel
+               (kernel_ms), the mma.sync kernel (mma_f32_ms) and the FMA
+               design (fma_f32_ms) timed in turns, each with its bound
+               share, the wgmma build's registers and spills, and the
+               plain version's ms, beside the least time the card could
+               take: 3xTF32 on the tensor cores (bound_ms) and the
+               function on the FMA units (fma_bound_ms); then B1 at both
+               dtypes at the serve path's N = 12,800 (256 window-views x 50
+               samples), checked against the plain version, timed in turns
+               with its mma.sync yardstick and bounded, and at a rank's
                N = 25,600 of two ranks (phases 35, 37);
   5. main      the flagship eval (inject/AE, 50 samples x 9 DDPM steps,
                'best', 5 views, batch 1024, float32) from a seeded
                checkpoint on a synthetic dataset to the frame-level AUC,
                through `restore_and_infer`, with the kernels' launches
-               counted (the 3xTF32 kernel only);
+               counted (the wgmma 3xTF32 kernel only);
   6. agree     the same path twice on the same injected noise, once through
                the kernel and once through the plain version;
   7. profile   one more pass through the kernel under torch.profiler: the
@@ -71,13 +76,13 @@ Phases, each printing one line:
                device's idle share;
  16. train_bf16 train steps/s at `train_dtype` float32 and bfloat16, in
                turns;
- 17. check_frames B1 float32 and bfloat16 against their plain versions at
-               T = 4 and 6 frames (the U-Net of inject with 2 conditioning
-               frames, and of concat), and B1 bfloat16 (the wgmma kernel
-               and its mma.sync yardstick) also at T = 1, 2 and 5, at both
-               N;
+ 17. check_frames B1 float32 and bfloat16 (each the wgmma kernel and its
+               mma.sync yardstick) against their plain versions at T = 1,
+               2, 4, 5 and 6 frames (the U-Net of inject with 5, 4, 2 or 1
+               conditioning frames of 6, and of concat; the mma.sync
+               float32 kernel at T = 4 and 6), at both N;
  18. time_frames B1's ms per call at T = 6 and N = 51,200 at both dtypes
-               (bfloat16: the wgmma kernel and its mma.sync yardstick in
+               (each the wgmma kernel and its mma.sync yardstick in
                turns), beside their bounds, their shares and the plain
                version's;
  19. main_concat the flagship architecture with `conditioning_strategy:
@@ -281,7 +286,8 @@ TRAIN_LR = 1e-3
 
 # every kernel wrapper by its name in the kernels JSON line
 KERNELS = {
-    'denoiser': P.DENOISER, 'denoiser_f32_fma': P.DENOISER_F32_FMA,
+    'denoiser': P.DENOISER, 'denoiser_f32_mma': P.DENOISER_F32_MMA,
+    'denoiser_f32_fma': P.DENOISER_F32_FMA,
     'denoiser_bf16': P.DENOISER_BF16,
     'denoiser_bf16_mma': P.DENOISER_BF16_MMA,
     'denoiser_bf16_fma': P.DENOISER_BF16_FMA,
@@ -942,7 +948,9 @@ FRAMES = {4: dict(conditioning_indices=[0, 1]),
 BF16_FRAMES = {1: dict(conditioning_indices=[0, 1, 2, 3, 4]),
                2: dict(conditioning_indices=[0, 1, 2, 3]),
                5: dict(conditioning_indices=[0]), **FRAMES}
-# B1 at bfloat16 and its mma.sync yardstick, with their plans
+# B1 at each dtype and its mma.sync yardstick, with their plans
+F32_TC = (('denoiser', P.DENOISER, P.wg32_plan),
+          ('denoiser_f32_mma', P.DENOISER_F32_MMA, P.tc32_plan))
 BF16_TC = (('denoiser_bf16', P.DENOISER_BF16, P.wg_plan),
            ('denoiser_bf16_mma', P.DENOISER_BF16_MMA, P.tc_plan))
 # the other paths of `generate`, each on the flagship's other settings
@@ -967,28 +975,30 @@ def seeded_model(seed: int = 0, frames: Optional[int] = None, **kw):
 
 
 def check_frames_phase(g) -> dict:
-    """Phase 17 (B1 float32 at T = 4 and 6, bfloat16 at T = 1, 2, 4, 5 and
-    6); returns each kernel's max |diff| by (kernel, T, N)."""
+    """Phase 17 (B1 float32 and bfloat16 at T = 1, 2, 4, 5 and 6, the
+    float32 mma.sync yardstick at T = 4 and 6); returns each kernel's max
+    |diff| by (kernel, T, N)."""
     errs = {}
     for t in sorted(BF16_FRAMES):
         model, net = seeded_model(frames=t)
         folded = model.fold(net)
         for n in (N_FOLD, N_RAGGED):
             x, semb = fold_inputs(folded, n, g)
-            if t in FRAMES:
-                got = P.DENOISER(x, semb, folded)
+            want = P.denoise_reference(x, semb, folded)
+            for key, kernel, plan in F32_TC:
+                if key != 'denoiser' and t not in FRAMES:
+                    continue
+                got = kernel(x, semb, folded)
                 torch.cuda.synchronize()
-                err, ok = max_rel_excess(
-                    got, P.denoise_reference(x, semb, folded), KERNEL_RTOL,
-                    KERNEL_ATOL)
-                phase('check_frames', frames=t, kernel='denoiser', n=n,
-                      rows=P.tc32_plan(folded, x.device).rows,
+                err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
+                phase('check_frames', frames=t, kernel=key, n=n,
+                      rows=plan(folded, x.device).rows,
                       max_abs_err=err, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
                       ok=ok)
                 if not ok:
-                    raise RuntimeError(f'B1 disagrees with its plain version '
-                                       f'at T={t}, N={n}')
-                errs[('denoiser', t, n)] = err
+                    raise RuntimeError(f'{key} disagrees with its plain '
+                                       f'version at T={t}, N={n}')
+                errs[(key, t, n)] = err
             xb = x.bfloat16()
             want16 = P.denoise_reference(xb, semb, folded,
                                          compute_dtype=torch.bfloat16)
@@ -1018,17 +1028,19 @@ def time_frames_phase(g, peaks, card: str) -> dict:
     xb = x.bfloat16()
     flops = denoiser_flops_per_row(folded) * N_FOLD
     out = {}
-    # B1 at bfloat16 and its mma.sync yardstick in turns
-    bf16_ms = dict(zip((key for key, _, _ in BF16_TC), in_turns(
+    # B1 at each dtype and its mma.sync yardstick in turns
+    times = dict(zip((key for key, _, _ in F32_TC), in_turns(
+        *(lambda k=k: k(x, semb, folded) for _, k, _ in F32_TC))))
+    times.update(zip((key for key, _, _ in BF16_TC), in_turns(
         *(lambda k=k: k(xb, semb, folded) for _, k, _ in BF16_TC))))
     for key, kernel, xin, plan in (
-            ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device)),
+            *((key, k, x, plan(folded, x.device)) for key, k, plan in F32_TC),
             *((key, k, xb, plan(folded, x.device))
               for key, k, plan in BF16_TC)):
-        ms = bf16_ms.get(key) or time_ms(lambda: kernel(xin, semb, folded))
+        ms = times[key]
         plain_ms = time_ms(lambda: P.denoise_reference(
             xin, semb, folded, compute_dtype=xin.dtype))
-        b_ms, b_by = b1_bound(folded, N_FOLD, key != 'denoiser',
+        b_ms, b_by = b1_bound(folded, N_FOLD, xin.dtype == torch.bfloat16,
                               plan.blob.numel(), peaks)
         phase('time_frames', frames=6, kernel=key, n=N_FOLD,
               kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
@@ -1153,6 +1165,7 @@ def strategies_phase(ds, card: str) -> None:
 # one serve flush: 256 window-views x 50 samples (the JAX scorer's default
 # batch, mocodad_tpu/serve.py:123)
 SERVE_BATCH = 256
+SERVE_HOLD_CYCLES = 4_000_000_000   # ~2 s of the SMs' clock
 N_SERVE = SERVE_BATCH * 50
 # malformed protocol lines for the serve CLI, each skipped with a message
 SERVE_MALFORMED = ('not json', '[1, 2]', '{"type": "pose", "scene": 1}',
@@ -1164,24 +1177,30 @@ def time_fold_phase(folded, g, peaks, card: str, n: int) -> dict:
     25,600 of two): max |diff| against the plain version, ms, the plain
     version's ms and the bound; returns {kernel: numbers}, keyed n<N>_*."""
     x, semb = fold_inputs(folded, n, g)
+    xb = x.bfloat16()
     flops = denoiser_flops_per_row(folded) * n
     out = {}
+    # each dtype's kernel and its mma.sync yardstick in turns
+    times = dict(zip((key for key, _, _ in F32_TC), in_turns(
+        *(lambda k=k: k(x, semb, folded) for _, k, _ in F32_TC))))
+    times.update(zip((key for key, _, _ in BF16_TC), in_turns(
+        *(lambda k=k: k(xb, semb, folded) for _, k, _ in BF16_TC))))
     for key, kernel, xin, plan in (
-            ('denoiser', P.DENOISER, x, P.tc32_plan(folded, x.device)),
-            *((key, k, x.bfloat16(), plan(folded, x.device))
+            *((key, k, x, plan(folded, x.device)) for key, k, plan in F32_TC),
+            *((key, k, xb, plan(folded, x.device))
               for key, k, plan in BF16_TC)):
         want = P.denoise_reference(xin, semb, folded, compute_dtype=xin.dtype)
         got = kernel(xin, semb, folded)
         torch.cuda.synchronize()
-        if key == 'denoiser':
+        if xin.dtype == torch.float32:
             err, ok = max_rel_excess(got, want, KERNEL_RTOL, KERNEL_ATOL)
         else:
             err, _, _, ok = bf16_check(got, want, BF16_MAX_REL,
                                        BF16_MEAN_REL)
-        ms = time_ms(lambda: kernel(xin, semb, folded))
+        ms = times[key]
         plain_ms = time_ms(lambda: P.denoise_reference(
             xin, semb, folded, compute_dtype=xin.dtype))
-        b_ms, b_by = b1_bound(folded, n, key != 'denoiser',
+        b_ms, b_by = b1_bound(folded, n, xin.dtype == torch.bfloat16,
                               plan.blob.numel(), peaks)
         phase('time', n=n, kernel=key, max_abs_err=err, ok=ok,
               kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
@@ -1222,10 +1241,12 @@ def serve_phase(cfg, net, poses, eval_dtype: str, card: str) -> dict:
     """Phase 23: the test split pushed frame by frame at batch 256
     (flush_every None, so every batch launches at the final flush), timed:
     the pushes, flush()'s launches, the drain of the oldest batch and the
-    rest; B1's launches (9 per flush, no other kernel); the losses against
-    a scorer through the plain version on the same injected noise, and
-    finalize_clip against the offline post_processing of the same losses.
-    Returns B1's launches and the window-views per second."""
+    rest; B1's launches (9 per flush, no other kernel); whether the oldest
+    batch's drain waits on its own event (an untimed run held behind a
+    sleeping kernel); the losses against a scorer through the plain version
+    on the same injected noise, and finalize_clip against the offline
+    post_processing of the same losses.  Returns B1's launches and the
+    window-views per second."""
     f32 = eval_dtype == 'float32'
     name, key = ('serve', 'denoiser') if f32 else ('serve_bf16',
                                                    'denoiser_bf16')
@@ -1258,8 +1279,20 @@ def serve_phase(cfg, net, poses, eval_dtype: str, card: str) -> dict:
     check_main_launches(counts, key, batches, f'serve {eval_dtype}')
     # the oldest batch's drain waits on its own event: the card is busy
     # when it starts, and the newest batch is still running when it returns
-    # (an idle card at the first drain would show nothing, so it fails too)
-    pipelined = busy and not last_done
+    # (an idle card at the first drain would show nothing, so it fails too).
+    # Read on a second run whose batches queue behind a sleeping kernel, so
+    # that the answer does not hang on how fast the host launched them: in
+    # the timed run a slow host lets the card finish the newest batch first
+    held = StreamScorer(scfg, net, batch_size=SERVE_BATCH,
+                        max_pending_batches=1 << 20, device='cuda')
+    push_all(held, poses)
+    torch.cuda._sleep(SERVE_HOLD_CYCLES)
+    held.flush(force=True)
+    newest = held._pending_dev[-1].done
+    held_busy = not newest.query()
+    held._drain_one()
+    pipelined = held_busy and not newest.query()
+    held._drain()
 
     noise = device_noise(model.schedule.noise_steps - 1, model.num_coords,
                          model.n_frames_corrupt, model.n_joints)
@@ -2392,6 +2425,7 @@ def main() -> int:
         x, semb = fold_inputs(folded, n, g)
         want = P.denoise_reference(x, semb, folded)
         for key, kernel in (('denoiser', P.DENOISER),
+                            ('denoiser_f32_mma', P.DENOISER_F32_MMA),
                             ('denoiser_f32_fma', P.DENOISER_F32_FMA)):
             got = kernel(x, semb, folded)
             torch.cuda.synchronize()
@@ -2403,30 +2437,39 @@ def main() -> int:
                 raise RuntimeError(f'{key} disagrees with its plain version '
                                    f'at N={n}: max |diff| {err}')
 
-    # 4. time and bounds at N = 51,200: the 3xTF32 kernel does three TF32
-    # products per float32 product on the tensor cores; the FMA design
-    # does the function's own on the FMA units
+    # 4. time and bounds at N = 51,200, the wgmma kernel, the mma.sync
+    # kernel and the FMA design in turns: the tensor-core kernels do three
+    # TF32 products per float32 product; the FMA design does the
+    # function's own on the FMA units
     x, semb = fold_inputs(folded, N_FOLD, g)
-    kernel_ms = time_ms(lambda: P.DENOISER(x, semb, folded))
-    fma_ms = time_ms(lambda: P.DENOISER_F32_FMA(x, semb, folded))
+    kernel_ms, mma_ms, fma_ms = in_turns(
+        lambda: P.DENOISER(x, semb, folded),
+        lambda: P.DENOISER_F32_MMA(x, semb, folded),
+        lambda: P.DENOISER_F32_FMA(x, semb, folded))
     plain_ms = time_ms(lambda: P.denoise_reference(x, semb, folded))
     flops = denoiser_flops_per_row(folded) * N_FOLD
     io_bytes = 4 * (2 * x.numel() + semb.numel())
-    plan_tc32 = P.tc32_plan(folded, dev)
-    n_bytes = io_bytes + plan_tc32.blob.numel()
-    bound_ms, bound_by = b1_bound(folded, N_FOLD, False,
-                                  plan_tc32.blob.numel(), peaks)
+    blob32 = P.wg32_plan(folded, dev).blob.numel()
+    n_bytes = io_bytes + blob32
+    bound_ms, bound_by = b1_bound(folded, N_FOLD, False, blob32, peaks)
+    mma_bound_ms, mma_bound_by = b1_bound(
+        folded, N_FOLD, False, P.tc32_plan(folded, dev).blob.numel(), peaks)
     plan32 = P.kernel_plan(folded, dev)
     fma_bytes = io_bytes + const_bytes(plan32.mats, plan32.vecs)
     fma_bound_ms, fma_bound_by = bound(flops, fma_bytes, flops_peak,
                                        bytes_peak)
+    regs, spills = ptxas_usage(P.DENOISER.source)
     phase('time', n=N_FOLD, kernel_ms=f'{kernel_ms:.4f}',
-          fma_f32_ms=f'{fma_ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          mma_f32_ms=f'{mma_ms:.4f}', fma_f32_ms=f'{fma_ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}',
           bound_ms=f'{bound_ms:.4f}', bound_by=bound_by,
           bound_share=f'{bound_ms / kernel_ms:.4f}',
+          mma_bound_share=f'{mma_bound_ms / mma_ms:.4f}',
           fma_bound_ms=f'{fma_bound_ms:.4f}',
           fma_bound_share=f'{fma_bound_ms / kernel_ms:.4f}',
           fma_f32_bound_share=f'{fma_bound_ms / fma_ms:.4f}',
+          wg32_registers=regs, wg32_spill_bytes=spills,
+          speedup_over_mma=f'{mma_ms / kernel_ms:.3f}',
           gflop=f'{flops / 1e9:.2f}', mbytes=f'{n_bytes / 1e6:.2f}',
           kernel_tflops=f'{flops / kernel_ms / 1e9:.2f}', card=repr(card))
     serve_times = time_fold_phase(folded, g, peaks, card, N_SERVE)
@@ -2487,10 +2530,16 @@ def main() -> int:
         profile_phase('profile', run)
         entries['denoiser'] = dict(
             dtype='float32', path='main, eval_dtype float32',
-            source=CSRC + 'denoiser_tc_f32.cu', replaces=B1,
+            source=CSRC + 'denoiser_wg_f32.cu', replaces=B1,
             launches=launches, max_abs_err=errs[('denoiser', N_FOLD)],
             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by)
+        entries['denoiser_f32_mma'] = dict(
+            dtype='float32', path='yardstick of denoiser, no main path',
+            source=CSRC + 'denoiser_tc_f32.cu', replaces=B1,
+            launches=counts['denoiser_f32_mma'],
+            max_abs_err=errs[('denoiser_f32_mma', N_FOLD)], ms=mma_ms,
+            plain_ms=plain_ms, bound_ms=mma_bound_ms, bound_by=mma_bound_by)
         entries['denoiser_f32_fma'] = dict(
             dtype='float32', path='yardstick of denoiser, no main path',
             source=CSRC + 'denoiser.cu', replaces=B1,
@@ -2644,10 +2693,12 @@ def main() -> int:
             d_launches = KERNELS[key].launches
             d_plain = time_ms(lambda: D.dma_reference(x, semb, folded, dtype))
             if dtype == torch.float32:
-                # B1's kernel (3xTF32) and its bound; the function on the
-                # FMA units beside it (the FMA design's own bound)
-                db_ms, db_by = b1_bound(folded, N_FOLD, False,
-                                        plan_tc32.blob.numel(), peaks)
+                # B1's mma.sync kernel (3xTF32) and its bound; the
+                # function on the FMA units beside it (the FMA design's own
+                # bound)
+                db_ms, db_by = b1_bound(
+                    folded, N_FOLD, False,
+                    P.tc32_plan(folded, dev).blob.numel(), peaks)
                 f_plan = P.kernel_plan(folded, dev, dtype)
                 fb_ms, fb_by = bound(
                     flops, 4 * (2 * x.numel() + semb.numel()) +
@@ -2775,7 +2826,8 @@ def main() -> int:
         train_agree_phase(rcfg, build_dataset(rcfg, split='train'),
                           name='train_agree_random_imp', steps=1,
                           order=order, grad_floor=2e-2)
-        for key in ('denoiser', 'denoiser_bf16', 'denoiser_bf16_mma'):
+        for key in ('denoiser', 'denoiser_f32_mma', 'denoiser_bf16',
+                    'denoiser_bf16_mma'):
             ms, plain_ms, b_ms, b_by = frame_times[key]
             entries[key].update(
                 t6_path='main_concat / agree_concat_bf16',
@@ -2791,7 +2843,8 @@ def main() -> int:
             entries[key].update(serve_phase(cfg, net, poses, dtype, card),
                                 serve_path='serve / serve_bf16',
                                 **serve_times[key])
-        entries['denoiser_bf16_mma'].update(serve_times['denoiser_bf16_mma'])
+        for key in ('denoiser_f32_mma', 'denoiser_bf16_mma'):
+            entries[key].update(serve_times[key])
         serve_bound_phase(cfg, net, poses, card)
         checkpoint_phase(cfg, net, poses[:len(poses) // 4])
         config = cli_config(cfg, work)

@@ -19,13 +19,14 @@ accumulation and B1's rounding points (pallas_unet.py:157-204; the
 matrices rounded to bfloat16 as `_fold_gcn` / `_fold_joint` store them,
 biases and affines float32).  `denoise` routes by device: a CPU tensor
 goes to `denoise_reference` at x's dtype; a CUDA tensor launches a
-tensor-core kernel (`DENOISER`, `csrc/denoiser_tc_f32.cu`, 3xTF32, for
-float32 x; `DENOISER_BF16`, `csrc/denoiser_wg.cu`, its channel mixes on
-wgmma, for bfloat16 x), or raises.  `DENOISER_F32_FMA` and
+tensor-core kernel whose channel mixes run on wgmma (`DENOISER`,
+`csrc/denoiser_wg_f32.cu`, 3xTF32, for float32 x; `DENOISER_BF16`,
+`csrc/denoiser_wg.cu`, for bfloat16 x), or raises.  `DENOISER_F32_FMA` and
 `DENOISER_BF16_FMA` (`csrc/denoiser.cu`'s two entries) are the FMA design
-of B1, and `DENOISER_BF16_MMA` (`csrc/denoiser_tc.cu`, every product on
-mma.sync) the earlier bfloat16 tensor-core design, kept as the tensor-core
-kernels' yardsticks; `pack_for_tc_f32_kernel`, `pack_for_wg_kernel` and
+of B1, and `DENOISER_F32_MMA` (`csrc/denoiser_tc_f32.cu`) and
+`DENOISER_BF16_MMA` (`csrc/denoiser_tc.cu`), every product on mma.sync, the
+earlier tensor-core designs, kept as the kernels' yardsticks;
+`pack_for_wg32_kernel`, `pack_for_tc_f32_kernel`, `pack_for_wg_kernel` and
 `pack_for_tc_kernel` lay out their constants.
 
 The grouped (B2, `ops/grouped_unet.py`) and DMA-pipelined (B3,
@@ -1157,6 +1158,72 @@ def tile_parts(mt: int, parts: int) -> List[Tuple[int, int]]:
     return runs
 
 
+def f32_row_layout(folded: FoldedDenoiser):
+    """One fold row's area of the float32 tensor-core kernels (offsets in
+    bytes, strides in floats): x, the skips d1 and d2, silu_emb, then a
+    work area whose two ends alternate as layer input and output, every
+    activation a float32 (T*V, C) tile of `tc32_stride` columns.  Returns
+    B1's ops (`layer_sequence`), the channels (`tc_channels`), the fixed
+    regions' offsets, per op its placement fields (kind, T*V in and out,
+    padded C_in, in, out and skip with their strides), and the row's
+    bytes."""
+    seq = layer_sequence(folded)
+    e_dim, cin = folded.embedding_dim, folded.c_in
+    if e_dim > TC32_MAX_E:
+        raise ValueError(f'the float32 tensor-core denoiser takes embeddings '
+                         f'of at most {TC32_MAX_E}, got {e_dim}')
+    chans = tc_channels(folded)
+    regions = [('x', tc32_act_bytes(seq[0][2], cin)),
+               ('d1', tc32_act_bytes(seq[2][3], chans[3])),
+               ('d2', tc32_act_bytes(seq[5][3], chans[6])),
+               ('semb', -(-e_dim * 4 // 16) * 16)]
+    off, total = {}, 0
+    for name, size in regions:
+        off[name] = total
+        total += size
+    dst, skip = {2: 'd1', 5: 'd2'}, {9: 'd2', 12: 'd1'}
+    where, sides, work = 'x', [], 0
+    for k, (_, _, tvi, tvo) in enumerate(seq):
+        s_in = tc32_act_bytes(tvi, chans[k])
+        s_out = tc32_act_bytes(tvo, chans[k + 1])
+        out = dst.get(k) or ('R' if where == 'L' else 'L')
+        work = max(work, (s_in if where in 'LR' else 0)
+                   + (s_out if out in 'LR' else 0))
+        sides.append((where, out, s_in, s_out))
+        where = out
+
+    def at(side, size):
+        if side in off:
+            return off[side]
+        return total if side == 'L' else total + work - size
+
+    recs = []
+    for k, ((kind, _, tvi, tvo), (src, out, s_in, s_out)) in enumerate(
+            zip(seq, sides)):
+        ci, co = chans[k], chans[k + 1]
+        recs.append(dict(
+            kind=kind, tvi=tvi, tvo=tvo, ci=pad16(ci), res=0,
+            ks=pad8(tvi) // 8, skip=off[skip[k]] if k in skip else -1,
+            skip_stride=tc32_stride(co) if k in skip else 0,
+            **{'in': at(src, s_in), 'in_stride': tc32_stride(ci),
+               'out': at(out, s_out), 'out_stride': tc32_stride(co)}))
+    return seq, chans, off, recs, total + work
+
+
+def f32_budget(folded: FoldedDenoiser, rows: int, row_bytes: int,
+               emb_stride: int, static_bytes: int) -> Tuple[int, int, int]:
+    """(bytes of every layer's embedding for `rows` rows, bytes of the
+    prefetch buffer for the next tile's x and silu_emb, the most bytes
+    each of the two weight buffers may take) beside `rows` row areas and
+    the kernel's `static_bytes` of static shared memory."""
+    e_dim, tva = folded.embedding_dim, layer_sequence(folded)[0][2]
+    emb_bytes = rows * emb_stride * 4
+    pbuf_bytes = -(-rows * (folded.c_in * tva + e_dim) * 4 // 16) * 16
+    wcap = (MAX_SMEM_BYTES - static_bytes - rows * row_bytes - emb_bytes
+            - pbuf_bytes) // 2 // 16 * 16
+    return emb_bytes, pbuf_bytes, wcap
+
+
 def pack_for_tc_f32_kernel(folded: FoldedDenoiser, warps: int = TC32_WARPS,
                            rows: Optional[int] = None) -> TcPlan:
     """Lay the folded constants out for `csrc/denoiser_tc_f32.cu` and plan
@@ -1185,62 +1252,19 @@ def pack_for_tc_f32_kernel(folded: FoldedDenoiser, warps: int = TC32_WARPS,
     if rows is None:
         return most_rows(lambda r: pack_for_tc_f32_kernel(folded, warps, r),
                          TC32_ROW_COUNTS)
-    seq = layer_sequence(folded)
+    seq, chans, off, recs, row_bytes = f32_row_layout(folded)
     e_dim, cin = folded.embedding_dim, folded.c_in
-    if e_dim > TC32_MAX_E:
-        raise ValueError(f'the float32 tensor-core denoiser takes embeddings '
-                         f'of at most {TC32_MAX_E}, got {e_dim}')
-    chans = [cin]
-    for kind, i, _, _ in seq:
-        chans.append(folded.gcn[i].w2.shape[0] if kind == 0 else chans[-1])
-
-    # one row's area: fixed regions, then the work area
-    regions = [('x', tc32_act_bytes(seq[0][2], cin)),
-               ('d1', tc32_act_bytes(seq[2][3], chans[3])),
-               ('d2', tc32_act_bytes(seq[5][3], chans[6])),
-               ('semb', -(-e_dim * 4 // 16) * 16)]
-    off, total = {}, 0
-    for name, size in regions:
-        off[name] = total
-        total += size
-    dst, skip = {2: 'd1', 5: 'd2'}, {9: 'd2', 12: 'd1'}
-    where, sides, work = 'x', [], 0
-    for k, (_, _, tvi, tvo) in enumerate(seq):
-        s_in = tc32_act_bytes(tvi, chans[k])
-        s_out = tc32_act_bytes(tvo, chans[k + 1])
-        out = dst.get(k) or ('R' if where == 'L' else 'L')
-        work = max(work, (s_in if where in 'LR' else 0)
-                   + (s_out if out in 'LR' else 0))
-        sides.append((where, out, s_in, s_out))
-        where = out
-
-    def at(side, size):
-        if side in off:
-            return off[side]
-        return total if side == 'L' else total + work - size
-
-    row_bytes = total + work
     emb_stride = sum(pad8(w.w2.shape[0]) for w in folded.gcn)
-    emb_bytes = rows * emb_stride * 4
-    # the next tile's x and silu_emb, as cp.async brings them
-    pbuf_bytes = -(-rows * (cin * seq[0][2] + e_dim) * 4 // 16) * 16
-    # the kernel also holds the table and its mbarriers in static shared
-    # memory
-    wcap = (MAX_SMEM_BYTES - TC32_STATIC_SMEM - rows * row_bytes
-            - emb_bytes - pbuf_bytes) // 2 // 16 * 16
+    emb_bytes, pbuf_bytes, wcap = f32_budget(folded, rows, row_bytes,
+                                             emb_stride, TC32_STATIC_SMEM)
 
     ops, blocks = [], []
     emb_w, emb_b = [], []            # every layer's W_e and b_e, stacked
-    for k, ((kind, i, tvi, tvo), (src, out, s_in, s_out)) in enumerate(
-            zip(seq, sides)):
+    for k, (kind, i, tvi, tvo) in enumerate(seq):
         ci, co = chans[k], chans[k + 1]
         mt, ks = pad16(tvo) // 16, pad8(tvi) // 8
-        rec = dict(kind=kind, tvi=tvi, tvo=tvo, ks=ks, ci=pad16(ci), res=0,
-                   c0=0, w=-1, w_stride=0, wr=-1, bias=-1, slope=-1, rs=-1,
-                   rt=-1, emb=-1, skip=off[skip[k]] if k in skip else -1,
-                   skip_stride=tc32_stride(co) if k in skip else 0,
-                   **{'in': at(src, s_in), 'in_stride': tc32_stride(ci),
-                      'out': at(out, s_out), 'out_stride': tc32_stride(co)})
+        rec = dict(recs[k], c0=0, w=-1, w_stride=0, wr=-1, bias=-1, slope=-1,
+                   rs=-1, rt=-1, emb=-1)
         name = GCN_LAYERS[i] if kind == 0 else JOINT_LAYERS[i]
         if kind == 1:
             j = folded.joint[i]
@@ -1357,6 +1381,261 @@ def tc32_plan(folded: FoldedDenoiser, device: torch.device,
     `device`, built once per warp count."""
     return cached_plan(folded, ('denoiser_tc32', warps), device,
                        lambda: pack_for_tc_f32_kernel(folded, warps))
+
+
+# ---------------------------------------------------------------------------
+# The float32 warpgroup kernel's constants and shared-memory plan
+# (csrc/denoiser_wg_f32.cu, B1 at float32 as 3xTF32, its channel and
+# residual mixes on wgmma)
+# ---------------------------------------------------------------------------
+
+# must match the enums in csrc/denoiser_wg_f32.cu (checked when it loads):
+# the header is TC32_HEADER's
+WG32_HEADER = TC32_HEADER
+WG32_OP = ('kind', 'ci', 'nt', 'nsplit', 'tvi', 'tvo', 'mt', 'ks', 'in',
+           'in_stride', 'out', 'out_stride', 'skip', 'skip_stride', 'res',
+           'p0', 'c0', 'c1', 'nrec', 'blob', 'blob_bytes', 'k', 'kmask', 'w',
+           'w_lo', 'wr', 'wr_lo', 'w_step', 'bias', 'slope', 'rs', 'rt',
+           'emb')
+WG32_ROW_COUNTS = (2, 1)             # its builds: fold rows per tile
+WG32_WARPS = 8                       # warps per block (kWarps)
+WG32_GROUPS = WG32_WARPS // 4        # warpgroups per block (kGroups)
+WG32_MAX_TABLE = 2048                # ints of table it copies (kMaxTable)
+WG32_STATIC_SMEM = 4 * WG32_MAX_TABLE + 16   # the table and two mbarriers
+WG32_UNIT_TILES = (2, 4, 8, 16)      # 8-channel tiles per wgmma (N 16-128)
+# wgmma's K-major TF32 B operand without swizzle: 8x4 core matrices of
+# 16-byte rows, the two along K (a k-step's 8 input channels) WG_LBO bytes
+# apart, successive 8-row groups along N (output channels) WG_SBO apart;
+# within a k-step the input channels in the order of the A fragment's
+# logical columns (the graph mix's accumulator registers c0, c2, c1, c3)
+WG32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def wg32_nsplit(nt: int) -> int:
+    """Parts of C_out (8 nt channels) for one ST-GCNN layer: the fewest
+    whose wgmma width the kernel builds (WG32_UNIT_TILES; each part
+    recomputes its units' graph mixes)."""
+    for ns in range(1, nt + 1):
+        if nt % ns == 0 and nt // ns in WG32_UNIT_TILES:
+            return ns
+    raise ValueError(f'the float32 warpgroup denoiser cannot split '
+                     f'{8 * nt} output channels into wgmmas of '
+                     f'{[8 * t for t in WG32_UNIT_TILES]}')
+
+
+def wg32_min_width(ntu: int) -> int:
+    """The fewest input channels per record the kernel builds beside a
+    wgmma of 8 ntu channels: 8 (a round of one k-step) beside the widest
+    two, else 16."""
+    return 8 if ntu >= 8 else 16
+
+
+def wg32_b_tiles(m: torch.Tensor, cop: int, c0: int, c1: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """A channel mix W (C_out, C_in), input channels [c0, c1), as wgmma's
+    K-major TF32 B operand, zero padded to `cop` output channels, split
+    into hi (rounded to TF32) and lo (the rest, rounded to TF32), as K is
+    (`k_fragments`): per 8 input channels (a k-step), per 8 output
+    channels, the two 8x4 core matrices (the k-step's channels in
+    WG32_PERM order: 0 2 4 6, then 1 3 5 7), each 8 rows of 16 bytes;
+    ((c1 - c0) / 8, cop / 8, 2, 8, 4) float32 each, so that a k-step spans
+    32 cop bytes."""
+    a = m.detach().cpu().float().numpy()[:, c0:c1]
+    t = np.zeros((cop, c1 - c0), np.float32)
+    t[:a.shape[0], :a.shape[1]] = a
+    hi, lo = tf32_split(t)
+    lo = tf32_round(lo)
+    # t[8 grp + n, 8 q + 2 e + h] -> (q, grp, h, n, e)
+    return tuple(np.ascontiguousarray(v.reshape(
+        cop // 8, 8, (c1 - c0) // 8, 4, 2).transpose(2, 0, 4, 1, 3))
+        for v in (hi, lo))
+
+
+def k_step_masks(m: torch.Tensor, mt: int, ks: int) -> np.ndarray:
+    """Per 16-position output tile of a graph operator (TVo, TVi), the
+    bit mask of its 8-position blocks along the input that hold a nonzero
+    entry, as int32."""
+    mat = m.detach().cpu().float().numpy()
+    k = np.zeros((16 * mt, 8 * ks), np.float32)
+    k[:mat.shape[0], :mat.shape[1]] = mat
+    nz = (k != 0).reshape(mt, 16, ks, 8).any(axis=(1, 3))
+    return (nz * (1 << np.arange(ks))).sum(axis=1).astype(np.int32)
+
+
+def wg32_record_bytes(m: int, ks: int, width: int, cop: int,
+                      res: bool) -> int:
+    """Bytes of one ST-GCNN record's constants: K hi and lo of its `m`
+    output tiles in fragment order, their masks, W (and Wr) hi and lo for
+    `width` input channels, bias, slope."""
+    return (m * ks * 1024 + pad16(4 * m) + (2 if res else 1) * 2 *
+            (width // 8) * 32 * cop + 4 * cop + 16)
+
+
+def wg32_gcn_plan(rows: int, mt: int, ks: int, cip: int, cop: int,
+                  res: bool, wcap: int):
+    """How an ST-GCNN layer's constants stream through buffers of `wcap`
+    bytes beside the block's WG32_GROUPS warpgroups: (runs of its
+    16-position output tiles as (first tile, tiles), input channels per
+    record, parts of C_out).  C_out goes in the fewest parts the wgmma
+    widths allow (`wg32_nsplit`): each part recomputes its units' graph
+    mixes, and a plan that split d3_0 and d3_1 further to busy the idle
+    warpgroup ran slower (`PERF.md`).  A run of several records keeps each
+    warpgroup unit's accumulators in registers from one to the next, so
+    it has at most one warpgroup unit per warpgroup.  Least rounds of
+    warpgroup units over the warpgroups first (a run's units wait for the
+    run before), then fewest records; None if nothing fits."""
+    nt, groups = cop // 8, WG32_GROUPS
+    ns = wg32_nsplit(nt)
+    best = None
+    for parts in range(1, mt + 1):
+        runs = tile_parts(mt, parts)
+        units = [-(-rows * m // 4) * ns for _, m in runs]
+        rounds = sum(-(-u // groups) for u in units)
+        for width in (cip >> j for j in range(8)):
+            if width < wg32_min_width(nt // ns) or cip % width or width % 8:
+                continue
+            nrec = cip // width
+            if nrec > 1 and max(units) > groups:
+                continue
+            if wg32_record_bytes(runs[0][1], ks, width, cop, res) > wcap:
+                continue
+            key = (rounds, parts * nrec)
+            if best is None or key < best[0]:
+                best = (key, runs, width, ns)
+    return None if best is None else best[1:]
+
+
+def pack_for_wg32_kernel(folded: FoldedDenoiser,
+                         rows: Optional[int] = None) -> TcPlan:
+    """Lay the folded constants out for `csrc/denoiser_wg_f32.cu` and plan
+    its shared memory as `pack_for_tc_f32_kernel` does (the same row
+    layout, `f32_row_layout`, and header), for `rows` fold rows per tile:
+    by default the most of WG32_ROW_COUNTS that fit (2 up to T = 4 frames
+    at 17 joints, 1 at T = 5 and 6).
+
+    Each op record's constants are one 16-byte aligned block of the blob,
+    copied whole into a weight buffer.  An ST-GCNN layer streams as records
+    over runs of its 16-position output tiles (each with only those tiles'
+    rows of K, `k_fragments`, and their masks of nonzero 8-position steps,
+    `k_step_masks`) and over ranges of its input channels (each with those
+    rows of W and Wr, hi and lo, in wgmma's B layout, `wg32_b_tiles`; bias
+    and slope in every record), as `wg32_gcn_plan` picks; C_out in the
+    fewest parts the wgmma widths allow (`wg32_nsplit`).  A joint
+    re-scaling's dense (T*V_out, T*V_in) operator as K, over runs of its
+    output tiles where K does not fit a buffer, with its masks and its
+    per-row affine.  Every layer's W_e (C_out padded to 16, E), stacked and
+    transposed, then its b_e, form the blob's last block, which the kernel
+    reads through __ldg."""
+    if rows is None:
+        return most_rows(lambda r: pack_for_wg32_kernel(folded, r),
+                         WG32_ROW_COUNTS)
+    what = 'float32 warpgroup denoiser'
+    seq, chans, off, recs, row_bytes = f32_row_layout(folded)
+    e_dim, cin = folded.embedding_dim, folded.c_in
+    emb_stride = sum(pad16(w.w2.shape[0]) for w in folded.gcn)
+    emb_bytes, pbuf_bytes, wcap = f32_budget(folded, rows, row_bytes,
+                                             emb_stride, WG32_STATIC_SMEM)
+    ops, blocks = [], []
+    emb_w, emb_b = [], []            # every layer's W_e and b_e, stacked
+    for k, (kind, i, tvi, tvo) in enumerate(seq):
+        ci, co = chans[k], chans[k + 1]
+        cip, mt, ks = pad16(ci), pad16(tvo) // 16, pad8(tvi) // 8
+        rec = dict(recs[k], p0=0, c0=0, c1=cip, nrec=1, w=-1, w_lo=-1,
+                   wr=-1, wr_lo=-1, w_step=0, bias=-1, slope=-1, rs=-1,
+                   rt=-1, emb=-1)
+        name = GCN_LAYERS[i] if kind == 0 else JOINT_LAYERS[i]
+        kmat = folded.gcn[i].k2 if kind == 0 else folded.joint[i].d2
+        kfrag, masks = k_fragments(kmat, mt, ks), k_step_masks(kmat, mt, ks)
+        if kind == 1:
+            j = folded.joint[i]
+            affine = 2 * pad16(tvo) * 4
+            parts = next((p for p in range(1, mt + 1) if -(-mt // p) *
+                          (ks * 1024 + 4) + 16 + affine <= wcap), None)
+            if parts is None:
+                raise SharedMemoryError(f'the {what} cannot fit layer '
+                                        f'{name}\'s constants in {wcap} '
+                                        f'bytes')
+            for m0, m in tile_parts(mt, parts):
+                b = _Blob()
+                ops.append(dict(rec, nt=cip // 8, nsplit=1, mt=m,
+                                p0=16 * m0, k=b.add(kfrag[m0:m0 + m]),
+                                kmask=b.add(masks[m0:m0 + m]),
+                                rs=b.vec(j.rs, pad16(tvo)),
+                                rt=b.vec(j.rt, pad16(tvo))))
+                blocks.append(b)
+            continue
+        w = folded.gcn[i]
+        res = w.wr2 is not None
+        cop = pad16(co)
+        plan = wg32_gcn_plan(rows, mt, ks, cip, cop, res, wcap)
+        if plan is None:
+            raise SharedMemoryError(f'the {what} cannot fit layer {name}\'s '
+                                    f'constants in {wcap} bytes')
+        runs, width, ns = plan
+        col = sum(a.shape[0] for a in emb_w)
+        bias = np.zeros(cop, np.float32)
+        bias[:co] = w.bias.detach().cpu().float().numpy()
+        for m0, m in runs:
+            for c0 in range(0, cip, width):
+                b = _Blob()
+                r = dict(rec, nt=cop // 8, nsplit=ns,
+                         mt=m, p0=16 * m0, c0=c0, c1=c0 + width,
+                         nrec=cip // width, res=int(res),
+                         k=b.add(kfrag[m0:m0 + m]),
+                         kmask=b.add(masks[m0:m0 + m]), w_step=32 * cop,
+                         emb=col)
+                r['w'], r['w_lo'] = (b.add(a) for a in wg32_b_tiles(
+                    w.w2, cop, c0, c0 + width))
+                if res:
+                    r['wr'], r['wr_lo'] = (b.add(a) for a in wg32_b_tiles(
+                        w.wr2, cop, c0, c0 + width))
+                r.update(bias=b.add(bias),
+                         slope=b.add(np.float32([w.slope])))
+                ops.append(r)
+                blocks.append(b)
+        we = np.zeros((cop, e_dim), np.float32)
+        we[:co] = w.we2.detach().cpu().float().numpy()
+        eb = np.zeros(cop, np.float32)
+        eb[:co] = w.eb.detach().cpu().float().numpy()
+        emb_w.append(we)
+        emb_b.append(eb)
+
+    offset = 0
+    for o, b in zip(ops, blocks):
+        o.update(blob=offset, blob_bytes=b.size)
+        offset += b.size
+    embw = _Blob()
+    embw.add(np.ascontiguousarray(np.concatenate(emb_w).T))
+    embw.add(np.concatenate(emb_b))
+    wbuf = max(b.size for b in blocks)
+    emb_off = 2 * wbuf
+    pbuf_off = emb_off + emb_bytes
+    row0 = pbuf_off + pbuf_bytes
+    smem_bytes = row0 + rows * row_bytes
+    check_smem(what, smem_bytes + WG32_STATIC_SMEM)
+    header = dict(nops=len(ops), e=e_dim, cin=cin, tva=seq[0][2],
+                  tvap=pad16(seq[0][2]), row0=row0, row_bytes=row_bytes,
+                  x_off=off['x'], x_stride=tc32_stride(cin),
+                  semb_off=off['semb'], emb_off=emb_off,
+                  emb_stride=emb_stride, embw_blob=offset, wbuf0=0,
+                  wbuf1=wbuf, out_off=ops[-1]['out'],
+                  out_stride=ops[-1]['out_stride'], pbuf_off=pbuf_off)
+    table = [header[k] for k in WG32_HEADER] + \
+        [int(o[k]) for o in ops for k in WG32_OP]
+    if len(table) > WG32_MAX_TABLE:
+        raise ValueError(f'the {what} reads at most {WG32_MAX_TABLE} table '
+                         f'entries, got {len(table)}')
+    blob = np.concatenate([p for b in blocks + [embw] for p in b.parts])
+    return TcPlan(blob=torch.from_numpy(blob),
+                  table=torch.tensor(table, dtype=torch.int32),
+                  smem_bytes=smem_bytes, rows=rows)
+
+
+def wg32_plan(folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+    """The float32 warpgroup kernel's packed constants and table on
+    `device`, built once."""
+    return cached_plan(folded, ('denoiser_wg32',), device,
+                       lambda: pack_for_wg32_kernel(folded))
 
 
 # ---------------------------------------------------------------------------
@@ -1568,12 +1847,33 @@ class TensorCoreF32DenoiserKernel(TensorCoreDenoiserKernel):
         return tc32_plan(folded, device)
 
 
-# B1 at each dtype: the tensor-core kernel on the main path, and the
-# earlier designs kept as its yardsticks (timed beside it, never on a main
-# path): at float32 the FMA design of csrc/denoiser.cu; at bfloat16 the
-# mma.sync kernel (csrc/denoiser_tc.cu, whose op code B2 and B3 share) and
-# the FMA design
-DENOISER = TensorCoreF32DenoiserKernel()
+class WarpgroupF32DenoiserKernel(TensorCoreF32DenoiserKernel):
+    """Wrapper of `csrc/denoiser_wg_f32.cu`, B1 at float32 as 3xTF32 with
+    its channel and residual mixes on wgmma: float32 x, silu_emb and eps.
+    `launches` counts the kernel launches this process made through it,
+    and nothing else."""
+
+    source = 'denoiser_wg_f32.cu'
+    symbol = 'mocodad_denoiser_wg32_launch'
+    prefix = 'mocodad_denoiser_wg32'
+
+    def constants(self) -> Dict[str, int]:
+        return {'row_counts': row_mask(WG32_ROW_COUNTS),
+                'warps_per_block': WG32_WARPS, 'max_table': WG32_MAX_TABLE,
+                'header_len': len(WG32_HEADER), 'op_len': len(WG32_OP),
+                'sbo': WG_SBO}
+
+    def plan(self, folded: FoldedDenoiser, device: torch.device) -> TcPlan:
+        return wg32_plan(folded, device)
+
+
+# B1 at each dtype: the warpgroup kernel on the main path, and the earlier
+# designs kept as its yardsticks (timed beside it, never on a main path):
+# the mma.sync kernel (at float32 csrc/denoiser_tc_f32.cu, whose entry B3
+# float32 shares; at bfloat16 csrc/denoiser_tc.cu, whose op code B2 and B3
+# share) and the FMA design of csrc/denoiser.cu
+DENOISER = WarpgroupF32DenoiserKernel()
+DENOISER_F32_MMA = TensorCoreF32DenoiserKernel()
 DENOISER_F32_FMA = DenoiserKernel(torch.float32)
 DENOISER_BF16 = WarpgroupDenoiserKernel()
 DENOISER_BF16_MMA = TensorCoreDenoiserKernel()

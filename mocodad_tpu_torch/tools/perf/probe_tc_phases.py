@@ -1,29 +1,32 @@
-"""Probe: where a tile's time goes inside a tensor-core denoiser
-(B1 at bfloat16: `csrc/denoiser_wg.cu`, the main path's, and
-`csrc/denoiser_tc.cu`, the mma.sync yardstick; or `csrc/denoiser_tc_f32.cu`,
-B1 at float32 as 3xTF32).
+"""Probe: where a tile's time goes inside a tensor-core denoiser (B1 at
+bfloat16: `csrc/denoiser_wg.cu`, the main path's, and `csrc/denoiser_tc.cu`,
+its mma.sync yardstick; at float32 as 3xTF32: `csrc/denoiser_wg_f32.cu`,
+the main path's, and `csrc/denoiser_tc_f32.cu`, its mma.sync yardstick).
 
 Writes a copy of the source with clock64() counters around each phase of
 a tile (the loads of x and silu_emb, the embeddings, every op, the store)
 and, inside the ST-GCNN layers, around warp 0's MMA chunk loops and
-epilogues (and, at bfloat16, the graph mixes inside the loops: the
-channel mixes are the rest of the loops); builds it with nvcc beside the
-package's builds; runs one call at N = 51,200 rows on the flagship U-Net
-(weights from a seed) and prints thread 0's cycles per tile for each
-phase, averaged over every block's tiles.  At bfloat16 both kernels run
-in one process, the breakdown per kernel: graph mixes, channel mixes,
-joint re-scalings, epilogues, staging and barriers (the wait for each
-op's constants and the barrier before it), loads, embeddings and the
-store.  Thread 0 (warp 0) always has a unit of work and arrives last at
-each barrier, so an op's cycles are its critical path.  A counter reads
-the clock when an MMA has been issued, not when its result lands: a
-wait for results counts where the next instruction needs them.  The
-counters themselves add a little; the probe also prints the instrumented
-call's ms beside the plain build's.  With `--variants` (float32) it then builds
-the kernel for other warp counts, chunk widths and joint routes
-(VARIANTS: warps per block, input channels per graph-mix chunk, the joint
-re-scalings as dense 3xTF32 products or on the FMA units) and times them
-in turns in the same call.  Needs a CUDA device.
+epilogues (and, except in the mma.sync float32 kernel, the graph mixes
+inside the loops: the channel mixes are the rest of the loops); builds it
+with nvcc beside the package's builds; runs one call at N = 51,200 rows
+on the flagship U-Net (weights from a seed) and prints thread 0's cycles
+per tile for each phase, averaged over every block's tiles.  Both kernels
+of a dtype run in one process, the breakdown per kernel: graph mixes,
+channel mixes, joint re-scalings, epilogues, staging and barriers (the
+wait for each op's constants and the barrier before it; at float32 on
+wgmma, for each record of a run), loads, embeddings and the store.
+Thread 0 (warp 0) always has a unit of work and arrives last at each
+barrier, so an op's cycles are its critical path.  A counter reads the
+clock when an MMA has been issued, not when its result lands: a wait for
+results counts where the next instruction needs them.  The counters
+themselves add a little; the probe also prints the instrumented call's ms
+beside the plain build's.  With `--variants` (float32) it then builds the
+wgmma kernel for other warp counts, widest wgmmas and rounds
+(WG32_VARIANTS), and the mma.sync kernel for other warp counts, chunk
+widths and joint routes (VARIANTS: warps per block, input channels per
+graph-mix chunk, the joint re-scalings as dense 3xTF32 products or on
+the FMA units), each checked and timed in turns in the same call.  Needs
+a CUDA device.
 
     python -m mocodad_tpu_torch.tools.perf.probe_tc_phases \
         [--dtype bfloat16|float32] [--n N] [--variants]
@@ -37,6 +40,7 @@ import os
 import re
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -104,8 +108,86 @@ def _patches(namespace: str, load: str, embed: str, wait: str, run: str,
          ((epilogue, start + epilogue), (stored, stored + end)))
 
 
+# B1 at float32 on wgmma: an op is a run of records (next_record waits for
+# each, its time kept per block in g_wait and moved to the run's barrier
+# slot), and warp 0's graph mixes, chunk rounds and epilogues in gcn_record
+# and gcn_run
+WG32_PATCHES = (
+    ('namespace mocodad_wg32 {\nnamespace {\n',
+     'namespace mocodad_wg32 {\n'
+     '__device__ unsigned long long g_prof[64];\n'
+     '__shared__ unsigned long long g_wait;\nnamespace {\n'),
+    ('    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n'
+     '    __syncthreads();     // this tile\'s x and silu_emb have arrived\n'
+     '    load_tile<kRows>(tid, sm, t, n, n0);',
+     '    long long tl = clock64();\n'
+     '    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n'
+     '    __syncthreads();     // this tile\'s x and silu_emb have arrived\n'
+     '    load_tile<kRows>(tid, sm, t, n, n0);\n'
+     '    if (tid == 0) atomicAdd(&g_prof[40], (unsigned long long)'
+     '(clock64() - tl));'),
+    ('    embed_all<kRows>(tid, sm, t, blob);',
+     '    long long te = clock64();\n'
+     '    embed_all<kRows>(tid, sm, t, blob);\n'
+     '    if (tid == 0) atomicAdd(&g_prof[46], (unsigned long long)'
+     '(clock64() - te));'),
+    ('    for (int op = 0; op < nops;)\n'
+     '      op += run_op<kRows>(pp, tid, sm, t, ops, op, nops, more, blob);',
+     '    for (int op = 0, run_i = 0; op < nops; ++run_i) {\n'
+     '      const unsigned long long w0 = g_wait;\n'
+     '      long long t1 = clock64();\n'
+     '      op += run_op<kRows>(pp, tid, sm, t, ops, op, nops, more, blob);\n'
+     '      if (tid == 0) {\n'
+     '        const unsigned long long w = g_wait - w0;\n'
+     '        atomicAdd(&g_prof[2 * run_i], w);\n'
+     '        atomicAdd(&g_prof[2 * run_i + 1], (unsigned long long)'
+     '(clock64() - t1) - w);\n'
+     '      }\n'
+     '    }'),
+    ('  mbar_wait(pp.bar[pp.buf], pp.parity >> pp.buf & 1);\n'
+     '  pp.parity ^= 1u << pp.buf;\n'
+     '  __syncthreads();',
+     '  long long tw = clock64();\n'
+     '  mbar_wait(pp.bar[pp.buf], pp.parity >> pp.buf & 1);\n'
+     '  pp.parity ^= 1u << pp.buf;\n'
+     '  __syncthreads();\n'
+     '  if (tid == 0) g_wait += clock64() - tw;'),
+    ('    if (live) graph_mix<JT>(g, gs, kf, f, in_st, mi, c, ks, mask, lane);',
+     '    long long tg = clock64();\n'
+     '    if (live) graph_mix<JT>(g, gs, kf, f, in_st, mi, c, ks, mask, lane);\n'
+     '    if (warp == 0 && lane == 0) atomicAdd(&g_prof[47], '
+     '(unsigned long long)(clock64() - tg));'),
+    ('  for (int c = c0; c < c1; c += 8 * JT) {',
+     '  long long ta = clock64();\n'
+     '  for (int c = c0; c < c1; c += 8 * JT) {'),
+    ('    wg_wait_all();\n    keep<NT>(acc);\n  }\n}',
+     '    wg_wait_all();\n    keep<NT>(acc);\n  }\n'
+     '  if (warp == 0 && lane == 0) atomicAdd(&g_prof[44], '
+     '(unsigned long long)(clock64() - ta));\n}'),
+    ('    if (v < units && u.live)\n      gcn_epilogue<NT>(',
+     '    long long tb = clock64();\n'
+     '    if (v < units && u.live)\n      gcn_epilogue<NT>('),
+    ('                       u.m0, u.part * NT * 8, lane);',
+     '                       u.m0, u.part * NT * 8, lane);\n'
+     '    if (warp == 0 && lane == 0) atomicAdd(&g_prof[45], '
+     '(unsigned long long)(clock64() - tb));'),
+    ('    __syncthreads();\n    store_tile<kRows>(tid, sm, t, eps, n, n0);',
+     '    long long ts = clock64();\n'
+     '    __syncthreads();\n'
+     '    store_tile<kRows>(tid, sm, t, eps, n, n0);\n'
+     '    if (tid == 0) atomicAdd(&g_prof[41], (unsigned long long)'
+     '(clock64() - ts));'),
+)
+
+# builds of csrc/denoiser_wg_f32.cu: (warps per block, widest wgmma in
+# 8-channel tiles, most k-steps of 8 input channels per round); the first
+# is the shipped build
+WG32_VARIANTS = ((8, 16, 4), (8, 8, 4), (12, 8, 2))
+
+
 # per source: (file, namespace, patches)
 SOURCES = {
+    'wg32': ('denoiser_wg_f32.cu', 'mocodad_wg32', WG32_PATCHES),
     'mma': ('denoiser_tc.cu', 'mocodad_tc', _patches(
         'mocodad_tc', '    load_tile<kRows>(tid, sm, t, x, semb, n, n0);',
         '    embed_all<kRows>(tid, sm, t, kRows);',
@@ -189,22 +271,43 @@ def instrumented_source(which: str = 'wg') -> str:
     return src + READER.replace('NAMESPACE', namespace)
 
 
+# nvcc's output for each variant this process built
+VARIANT_LOGS = {}
+
+
 def build_variant(stem: str, src: str, flags=()) -> ctypes.CDLL:
     """`src` built with nvcc (the package's flags plus `flags`) into
-    build/lib<stem>.so, beside the package's builds."""
+    build/lib<stem>.so, beside the package's builds; nvcc's output in
+    VARIANT_LOGS[stem]."""
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     cu = os.path.join(build.BUILD_DIR, f'{stem}.cu')
     so = os.path.join(build.BUILD_DIR, f'lib{stem}.so')
     with open(cu, 'w') as f:
         f.write(src)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, '-I',
-                    build.CSRC_DIR, '-o', so, cu], check=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, '-I',
+                           build.CSRC_DIR, '-o', so, cu],
+                          capture_output=True, text=True)
+    VARIANT_LOGS[stem] = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise RuntimeError(f'nvcc failed on {stem}:\n{VARIANT_LOGS[stem]}')
     return ctypes.CDLL(so)
+
+
+def ptxas_summary(log: str) -> str:
+    """The most registers and spill bytes of any kernel in ptxas's -v
+    output, and how many wgmma warnings (C75xx) it gave, by code."""
+    regs = [int(v) for v in re.findall(r'Used (\d+) registers', log)]
+    spills = [int(v) for v in re.findall(r'(\d+) bytes spill stores', log)]
+    codes = re.findall(r'\((C75\d\d)\)', log)
+    counts = {c: codes.count(c) for c in sorted(set(codes))}
+    return (f'registers={max(regs, default=0)} '
+            f'spill_bytes={max(spills, default=0)} '
+            f'wgmma_warnings={counts}')
 
 
 def _setup(which: str, n: int, seed: int, warps: int = P.TC32_WARPS):
     """(kernel wrapper, x, silu_emb, plan, folded) on the card, the plan
-    for a build of `warps` warps (float32)."""
+    for a build of `warps` warps (float32 on mma.sync)."""
     dev = resolve_device('cuda')
     folded = flagship_fold(dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -215,7 +318,10 @@ def _setup(which: str, n: int, seed: int, warps: int = P.TC32_WARPS):
     if which == 'mma':
         return P.DENOISER_BF16_MMA, x.bfloat16(), semb, \
             P.tc_plan(folded, dev), folded
-    return P.DENOISER, x, semb, P.tc32_plan(folded, dev, warps), folded
+    if which == 'wg32':
+        return P.DENOISER, x, semb, P.wg32_plan(folded, dev), folded
+    return P.DENOISER_F32_MMA, x, semb, P.tc32_plan(folded, dev, warps), \
+        folded
 
 
 def _caller(lib, kernel, x, semb, plan, n):
@@ -232,8 +338,8 @@ def _caller(lib, kernel, x, semb, plan, n):
 
 
 def probe(n: int = N_ROWS, seed: int = 0, which: str = 'wg') -> dict:
-    """Cycles per tile of each phase of one kernel ('wg', 'mma' or 'f32');
-    prints one line each."""
+    """Cycles per tile of each phase of one kernel ('wg', 'mma', 'wg32' or
+    'f32'); prints one line each."""
     kernel, x, semb, plan, folded = _setup(which, n, seed)
     lib = build_variant(f'{os.path.splitext(SOURCES[which][0])[0]}_phases',
                         instrumented_source(which))
@@ -267,7 +373,7 @@ def probe(n: int = N_ROWS, seed: int = 0, which: str = 'wg') -> dict:
     barriers = sum(b for b, _ in result['ops'].values())
     result.update(total=total, joint_ops=joint, barriers=barriers)
     graph = ''
-    if which != 'f32':
+    if which in ('wg', 'mma', 'wg32'):
         result.update(graph_mixes=c[GRAPH],
                       channel_mixes=c[CHUNKS] - c[GRAPH])
         graph = (f' (graph mixes {c[GRAPH]:.0f}, channel mixes '
@@ -287,7 +393,8 @@ def probe(n: int = N_ROWS, seed: int = 0, which: str = 'wg') -> dict:
 
 def _records(plan, which):
     header, op = {'wg': (P.TC_HEADER, P.WG_OP), 'mma': (P.TC_HEADER, P.TC_OP),
-                  'f32': (P.TC32_HEADER, P.TC32_OP)}[which]
+                  'f32': (P.TC32_HEADER, P.TC32_OP),
+                  'wg32': (P.WG32_HEADER, P.WG32_OP)}[which]
     table = plan.table.cpu().numpy()
     nh, no = len(header), len(op)
     h = dict(zip(header, table[:nh]))
@@ -296,10 +403,21 @@ def _records(plan, which):
 
 
 def _op_names(folded, ops, which):
-    """One name per op record: the layer, with its first output channel
-    for a part of a layer's C_out."""
+    """One name per op record (per run of records at float32 on wgmma):
+    the layer, with its first output channel for a part of a layer's C_out
+    (its first output position for a later run)."""
     seq = iter(P.layer_sequence(folded))
     names = []
+    if which == 'wg32':
+        k = 0
+        while k < len(ops):
+            o = ops[k]
+            if o['p0'] == 0:
+                kind, i, _, _ = next(seq)
+                name = P.GCN_LAYERS[i] if kind == 0 else P.JOINT_LAYERS[i]
+            names.append(f'{name}@p{o["p0"]}' if o['p0'] else name)
+            k += o['nrec']
+        return names
     for o in ops:
         part = which == 'f32' and o['c0'] > 0
         if not part:
@@ -499,20 +617,102 @@ def compare_variants(variants=VARIANTS, n: int = N_ROWS, seed: int = 0,
     return times
 
 
+# the lines of csrc/denoiser_wg_f32.cu that a build of WG32_VARIANTS
+# rewrites: warps per block, the body of the widest wgmma, k-steps per round
+WG32_WARPS_LINE = 'constexpr int kWarps = 8;'
+WG32_WIDE_CASE = ('    case 16:\n'
+                  '      return jt == 1 ? RUN(16, 1) : RUN(16, 2);\n')
+WG32_RUN_CALL = 'gcn_run<NT, JT, kRows>('
+
+
+def wg32_variant_source(variant: tuple) -> str:
+    """csrc/denoiser_wg_f32.cu built for (warps per block, widest wgmma in
+    8-channel tiles, most k-steps per round): the shipped values give the
+    source as it stands; raises if it no longer has a line this rewrites."""
+    w, nt, jt = variant
+    with open(os.path.join(build.CSRC_DIR, 'denoiser_wg_f32.cu')) as f:
+        src = f.read()
+    for anchor in (WG32_WARPS_LINE, WG32_WIDE_CASE, WG32_RUN_CALL):
+        if src.count(anchor) != 1:
+            raise RuntimeError(f'denoiser_wg_f32.cu changed: the variants '
+                               f'find {src.count(anchor)} copies of '
+                               f'{anchor!r}')
+    src = src.replace(WG32_WARPS_LINE, f'constexpr int kWarps = {w};')
+    if nt < 16:
+        src = src.replace(WG32_WIDE_CASE, '')
+    if jt < 4:
+        src = src.replace(WG32_RUN_CALL,
+                          f'gcn_run<NT, (JT < {jt} ? JT : {jt}), kRows>(')
+    return src
+
+
+def wg32_variant_plan(folded, variant: tuple, dev) -> P.TcPlan:
+    """The plan for a build of WG32_VARIANTS: the package's planner with
+    the variant's warpgroups per block and wgmma widths."""
+    w, nt, _ = variant
+    tiles = tuple(t for t in P.WG32_UNIT_TILES if t <= nt)
+    with mock.patch.multiple(P, WG32_GROUPS=w // 4, WG32_UNIT_TILES=tiles):
+        return P.pack_for_wg32_kernel(folded).to(dev)
+
+
+def compare_wg32_variants(variants=WG32_VARIANTS, n: int = N_ROWS,
+                          seed: int = 0, rounds: int = 1) -> dict:
+    """ms per call of the float32 wgmma kernel built for each (warps,
+    widest wgmma, k-steps per round) in `variants`, each with its own plan,
+    with ptxas's registers, spills and wgmma warnings, checked against the
+    plain version and timed in turns (a b .. b a per round) in one process
+    beside the mma.sync kernel."""
+    dev = resolve_device('cuda')
+    folded = flagship_fold(dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x, semb = fold_inputs(folded, n, g)
+    want = P.denoise_reference(x, semb, folded)
+    calls = {'mma': lambda: P.DENOISER_F32_MMA(x, semb, folded)}
+    for variant in variants:
+        w, nt, jt = variant
+        stem = 'denoiser_wg_f32_' + '_'.join(map(str, variant))
+        lib = build_variant(stem, wg32_variant_source(variant),
+                            ('-Xptxas=-v',))
+        plan = wg32_variant_plan(folded, variant, dev)
+        call, out = _caller(lib, P.DENOISER, x, semb, plan, n)
+        call()
+        torch.cuda.synchronize()
+        d = (out - want).abs()
+        ok = bool((d <= 1e-5 + 1e-4 * want.abs()).all())
+        print(f'[wg32_variant] warps={w} max_nt={nt} max_jt={jt} '
+              f'records={int(plan.table[0])} {ptxas_summary(VARIANT_LOGS[stem])} '
+              f'max_abs_err={float(d.max()):.3e} ok={ok}', flush=True)
+        if not ok:
+            raise RuntimeError(f'the {variant} build disagrees')
+        calls[variant] = call
+    times = {v: [] for v in calls}
+    order = list(calls) + list(reversed(list(calls)))
+    for _ in range(rounds):
+        for v in order:
+            times[v].append(time_ms(calls[v]))
+    for v, ts in times.items():
+        print(f'[wg32_variant] {v}: ' + ' / '.join(f'{t:.4f}' for t in ts) +
+              f' ms per call at N={n}', flush=True)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--dtype', choices=('bfloat16', 'float32'),
                     default='bfloat16')
     ap.add_argument('--n', type=int, default=N_ROWS)
     ap.add_argument('--variants', action='store_true',
-                    help='float32: also time the warp and chunk variants')
+                    help='float32: also time the builds of WG32_VARIANTS and '
+                         'the mma.sync kernel\'s warp and chunk variants')
     args = ap.parse_args(argv)
     if args.dtype == 'bfloat16':
         for which in ('wg', 'mma'):
             probe(args.n, which=which)
         return 0
-    probe(args.n, which='f32')
+    for which in ('wg32', 'f32'):
+        probe(args.n, which=which)
     if args.variants:
+        compare_wg32_variants(n=args.n)
         compare_variants(n=args.n)
     return 0
 

@@ -430,3 +430,201 @@ def emulate_wg_all(plan, x, semb):
     n = x.shape[2]
     return np.concatenate([emulate_wg(plan, x, semb, n0)
                            for n0 in range(0, n, plan.rows)], axis=2)
+
+
+# ---------------------------------------------------------------------------
+# The float32 warpgroup kernel (csrc/denoiser_wg_f32.cu): 3xTF32, W and Wr
+# hi and lo read back through a model of wgmma's TF32 descriptor
+# ---------------------------------------------------------------------------
+
+def tf32_operand(a):
+    """What a TF32 MMA reads of a float32 register: its top 19 bits (the
+    low 13 bits of the mantissa ignored)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xffffe000)).view(np.float32).astype(np.float64)
+
+
+def tf32_kernel_split(a):
+    """a -> (hi, lo) as the kernel splits an operand in registers and the
+    MMA reads them: hi = a with the low 13 mantissa bits cleared, lo = a -
+    hi exact in float32, truncated by the MMA."""
+    a = np.asarray(a, np.float32)
+    hi = tf32_operand(a)
+    return hi, tf32_operand((a - hi).astype(np.float32))
+
+
+def k_unfragment(frags):
+    """(mt, ks, 2, 32, 4) mma.m16n8k8 TF32 A fragments -> K hi and lo
+    (16 mt, 8 ks): a lane's four registers are rows g, g + 8, g, g + 8 and
+    columns t, t, t + 4, t + 4 (g = lane / 4, t = lane % 4)."""
+    mt, ks = frags.shape[:2]
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    rows = np.stack([gid, gid + 8, gid, gid + 8], axis=1)
+    cols = np.stack([tig, tig, tig + 4, tig + 4], axis=1)
+    out = np.full((2, 16 * mt, 8 * ks), np.nan, np.float32)
+    for i in range(mt):
+        for s in range(ks):
+            for part in range(2):
+                out[part, 16 * i + rows, 8 * s + cols] = frags[i, s, part]
+    return out[0], out[1]
+
+
+def wg32_b_operand(sm, desc, n):
+    """The (8, n) TF32 B operand (K = a k-step's 8 logical input columns,
+    n output channels) that a K-major descriptor without swizzle addresses
+    in shared memory: 8x4 core matrices of 16-byte rows, element (k, j) at
+    start + (j // 8) stride offset + (k // 4) leading offset + (j % 8) 16
+    + (k % 4) 4."""
+    assert desc >> 46 == 0, 'base offset and swizzle must be 0'
+    start = (desc & 0x3FFF) << 4
+    lbo, sbo = ((desc >> 16) & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    k, j = np.arange(8)[:, None], np.arange(n)[None, :]
+    off = start + j // 8 * sbo + k // 4 * lbo + j % 8 * 16 + k % 4 * 4
+    u = sum(sm[off + b].astype(np.uint32) << (8 * b) for b in range(4))
+    return u.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def wg32_weight(sm, wb, o, key):
+    """W^T or Wr^T (input channels C0 .. C1, C_out padded) of an op record
+    as the kernel's descriptors read its hi or lo half (`key`), k-step by
+    k-step and part by part, each k-step's logical columns put back at
+    their input channels (P.WG32_PERM)."""
+    ntu = o['nt'] // o['nsplit']
+    width, cop = o['c1'] - o['c0'], 8 * o['nt']
+    out = np.full((width, cop), np.nan)
+    for q in range(width // 8):
+        for o0 in range(0, cop, 8 * ntu):
+            b = wg32_b_operand(sm, wg_descriptor(
+                wb + o[key] + q * o['w_step'] + o0 // 8 * P.WG_SBO), 8 * ntu)
+            out[8 * q + np.array(P.WG32_PERM), o0:o0 + 8 * ntu] = b
+    return out
+
+
+WG32_TERMS = ('lo_hi', 'hi_lo', 'hi_hi')
+
+
+def wg32_product(ah, al, bh, bl, terms=WG32_TERMS):
+    """A B as the kernel's wgmmas take it: the `terms` of a_lo b_hi + a_hi
+    b_lo + a_hi b_hi (exact products of TF32 values, summed)."""
+    parts = {'lo_hi': (al, bh), 'hi_lo': (ah, bl), 'hi_hi': (ah, bh)}
+    return sum(a @ b for a, b in (parts[t] for t in terms))
+
+
+def emulate_wg32(plan, x, semb, n0=0, terms=WG32_TERMS):
+    """csrc/denoiser_wg_f32.cu on one tile of plan.rows fold rows from
+    row n0 of x (C_in, T*V, N) and silu(emb) (E, N): shared memory as
+    bytes that start as NaN (0xff), each record's constants copied from
+    the blob into the two weight buffers in turn, every layer's embedding
+    from the blob's W_e^T and b_e, activations as float32 (T*V, C) tiles
+    through the table's offsets and strides; the graph mixes as 3xTF32
+    over the 8-position blocks of K in the record's masks only (K's hi and
+    lo as the host split them, f split as the kernel splits it); the
+    channel and residual mixes with g and f split as the kernel splits
+    them, W and Wr hi and lo read through their descriptors, the `terms`
+    of each product (all three: `WG32_TERMS`), summed over a run's records
+    in one accumulator; the epilogue after a run's last record.  Returns
+    eps (C_in, T*V, rows) for the rows below N."""
+    h, ops = table_records(plan.table, P.WG32_HEADER, P.WG32_OP)
+    blob = plan.blob.numpy()
+    sm = np.full(plan.smem_bytes, 0xff, np.uint8)
+    rows, n = plan.rows, x.shape[2]
+    nv = max(0, min(rows, n - n0))
+
+    def tile(off, nrows, stride):
+        return smem_f32(sm, off, nrows * stride).reshape(nrows, stride)
+
+    def row(r):
+        return h['row0'] + r * h['row_bytes']
+
+    cin, tva, e, es = h['cin'], h['tva'], h['e'], h['emb_stride']
+    for r in range(rows):
+        xt = tile(row(r) + h['x_off'], h['tvap'], h['x_stride'])
+        xt[:, :h['x_stride'] - 8] = 0
+        if r < nv:
+            xt[:tva, :cin] = x[:, :, n0 + r].T
+        smem_f32(sm, row(r) + h['semb_off'], e)[:] = \
+            semb[:, n0 + r] if r < nv else 0
+    emb_blob = blob[h['embw_blob']:].view(np.float32)
+    we, eb = emb_blob[:e * es].reshape(e, es), emb_blob[e * es:e * es + es]
+    for r in range(rows):
+        smem_f32(sm, h['emb_off'] + r * es * 4, es)[:] = \
+            we.T.astype(np.float64) @ smem_f32(sm, row(r) + h['semb_off'],
+                                               e) + eb
+    acc = None
+    for k, o in enumerate(ops):
+        wb = h['wbuf0'] if k % 2 == 0 else h['wbuf1']
+        sm[wb:wb + o['blob_bytes']] = \
+            blob[o['blob']:o['blob'] + o['blob_bytes']]
+        mt, ks, p0 = o['mt'], o['ks'], o['p0']
+        tvop = 16 * mt
+        pos = slice(p0, p0 + tvop)          # the run's output positions
+        khi, klo = k_unfragment(smem_f32(sm, wb + o['k'], mt * ks * 256)
+                                .reshape(mt, ks, 2, 32, 4))
+        masks = smem_f32(sm, wb + o['kmask'], mt).view(np.int32)
+        keep = np.repeat(np.repeat(
+            (masks[:, None] >> np.arange(ks)[None, :]) & 1, 16, axis=0), 8,
+            axis=1)
+        khi = khi.astype(np.float64) * keep
+        klo = tf32_operand(klo) * keep
+        if o['kind'] == 1:
+            c = o['ci']
+            rs = smem_f32(sm, wb + o['rs'], p0 + tvop)[pos, None]
+            rt = smem_f32(sm, wb + o['rt'], p0 + tvop)[pos, None]
+            for r in range(rows):
+                f = tile(row(r) + o['in'], 8 * ks, o['in_stride'])
+                fh, fl = tf32_kernel_split(f[:, :c])
+                g = (klo @ fh + khi @ fl + khi @ fh).astype(np.float32)
+                y = g * rs + rt
+                if o['skip'] >= 0:
+                    y = y + tile(row(r) + o['skip'], p0 + tvop,
+                                 o['skip_stride'])[pos, :c]
+                y[max(0, o['tvo'] - p0):] = 0
+                tile(row(r) + o['out'], p0 + tvop,
+                     o['out_stride'])[pos, :c] = y
+            continue
+        c0, c1, cop = o['c0'], o['c1'], 8 * o['nt']
+        if c0 == 0:
+            acc = np.zeros((rows, tvop, cop))
+        wh, wl = wg32_weight(sm, wb, o, 'w'), wg32_weight(sm, wb, o, 'w_lo')
+        if o['res']:
+            wrh = wg32_weight(sm, wb, o, 'wr')
+            wrl = wg32_weight(sm, wb, o, 'wr_lo')
+        for r in range(rows):
+            f = tile(row(r) + o['in'], max(8 * ks, p0 + tvop),
+                     o['in_stride'])
+            fh, fl = tf32_kernel_split(f[:8 * ks, c0:c1])
+            g = (klo @ fh + khi @ fl + khi @ fh).astype(np.float32)
+            gh, gl = tf32_kernel_split(g)
+            acc[r] += wg32_product(gh, gl, wh, wl, terms)
+            if o['res']:
+                ah, al = tf32_kernel_split(f[pos, c0:c1])
+                acc[r] += wg32_product(ah, al, wrh, wrl, terms)
+        if c1 < o['ci']:
+            continue
+        bias = smem_f32(sm, wb + o['bias'], cop)
+        slope = smem_f32(sm, wb + o['slope'], 1)[0]
+        for r in range(rows):
+            f = tile(row(r) + o['in'], max(8 * ks, p0 + tvop),
+                     o['in_stride'])
+            y = acc[r].astype(np.float32).astype(np.float64)
+            if not o['res']:
+                y = y + f[pos, :cop]
+            y = (y + bias).astype(np.float32)
+            y = np.where(y >= 0, y, slope * y) + \
+                smem_f32(sm, h['emb_off'] + (r * es + o['emb']) * 4, cop)
+            y[max(0, o['tvo'] - p0):] = 0
+            tile(row(r) + o['out'], p0 + tvop, o['out_stride'])[pos, :cop] \
+                = y
+    eps = np.zeros((cin, tva, nv), np.float32)
+    for r in range(nv):
+        out = tile(row(r) + h['out_off'], h['tvap'], h['out_stride'])
+        x0 = tile(row(r) + h['x_off'], h['tvap'], h['x_stride'])
+        eps[:, :, r] = (out[:tva, :cin] + x0[:tva, :cin]).T
+    return eps
+
+
+def emulate_wg32_all(plan, x, semb, **kw):
+    n = x.shape[2]
+    return np.concatenate([emulate_wg32(plan, x, semb, n0, **kw)
+                           for n0 in range(0, n, plan.rows)], axis=2)

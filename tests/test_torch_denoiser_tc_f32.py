@@ -14,7 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_model, seeded_variables, torch_model, torch_net
+from _torch_port import (jax_model, seeded_variables, torch_model, torch_net,
+                         k_unfragment as unfragment,
+                         tf32_kernel_split as split,
+                         tf32_operand as mma_operand)
 from mocodad_tpu.ops.pallas_unet import build_pallas_denoiser
 from mocodad_tpu_torch.ops import pallas_unet as P
 
@@ -56,22 +59,6 @@ def _inputs(n, seed):
     return x, (s / (1 + np.exp(-s))).astype(np.float32)     # silu
 
 
-def mma_operand(a):
-    """What the TF32 MMA reads of a float32 register: its top 19 bits (the
-    low 13 bits of the mantissa ignored)."""
-    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
-    return (u & np.uint32(0xffffe000)).view(np.float32).astype(np.float64)
-
-
-def split(a):
-    """a -> (hi, lo) as the kernel splits an operand and the MMA reads
-    them: hi = a with the low 13 mantissa bits cleared, lo = a - hi exact
-    in float32, truncated by the MMA."""
-    a = np.asarray(a, np.float32)
-    hi = mma_operand(a)
-    return hi, mma_operand((a - hi).astype(np.float32))
-
-
 def mma3(ah, al, bh, bl):
     """A B as three TF32 products summed into float32."""
     return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
@@ -84,21 +71,6 @@ def _records(plan):
     ops = [dict(zip(P.TC32_OP, table[nh + i * no:nh + (i + 1) * no]))
            for i in range(h['nops'])]
     return h, ops
-
-
-def unfragment(frags):
-    """(mt, ks, 2, 32, 4) A fragments -> K hi and lo (16 mt, 8 ks)."""
-    mt, ks = frags.shape[:2]
-    lane = np.arange(32)
-    gid, tig = lane >> 2, lane & 3
-    rows = np.stack([gid, gid + 8, gid, gid + 8], axis=1)
-    cols = np.stack([tig, tig, tig + 4, tig + 4], axis=1)
-    out = np.full((2, 16 * mt, 8 * ks), np.nan, np.float32)
-    for i in range(mt):
-        for s in range(ks):
-            for part in range(2):
-                out[part, 16 * i + rows, 8 * s + cols] = frags[i, s, part]
-    return out[0], out[1]
 
 
 def emulate(plan, x, semb, n0=0):
@@ -435,15 +407,16 @@ def test_f32_cpu_tensor_goes_to_the_plain_version(weights):
     _, folded, _ = weights
     x, semb = _inputs(8, seed=3)
     xt, s = torch.from_numpy(x), torch.from_numpy(semb)
-    kernels = (P.DENOISER, P.DENOISER_F32_FMA, P.DENOISER_BF16,
-               P.DENOISER_BF16_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_MMA, P.DENOISER_F32_FMA,
+               P.DENOISER_BF16, P.DENOISER_BF16_FMA)
     before = [k.launches for k in kernels]
     got = P.denoise(xt, s, folded)
     assert [k.launches for k in kernels] == before
     assert torch.equal(got, P.denoise_reference(xt, s, folded))
-    assert isinstance(P.DENOISER, P.TensorCoreF32DenoiserKernel)
-    assert P.DENOISER.source == 'denoiser_tc_f32.cu'
-    for k in (P.DENOISER, P.DENOISER_F32_FMA):
+    # the mma.sync kernel is kept as the warpgroup kernel's yardstick
+    assert type(P.DENOISER_F32_MMA) is P.TensorCoreF32DenoiserKernel
+    assert P.DENOISER_F32_MMA.source == 'denoiser_tc_f32.cu'
+    for k in (P.DENOISER_F32_MMA, P.DENOISER_F32_FMA):
         with pytest.raises(ValueError, match='CUDA tensor'):
             k(xt, s, folded)
 

@@ -110,14 +110,15 @@ def test_table_format_matches_the_source():
 
 
 def test_f32_binds_the_3xtf32_kernel_under_its_own_name(weights):
-    """DMA_PIPELINED_F32 launches denoiser_tc_f32.cu's kernel on B1
-    float32's plan through mocodad_dma_tc32_launch, and counts apart from
-    B1's wrapper."""
+    """DMA_PIPELINED_F32 launches denoiser_tc_f32.cu's kernel (B1
+    float32 on mma.sync, the warpgroup kernel's yardstick) on its plan
+    through mocodad_dma_tc32_launch, and counts apart from that kernel's
+    wrapper."""
     _, folded, _ = weights
-    k = D.DMA_PIPELINED_F32
-    assert k.source == P.DENOISER.source == 'denoiser_tc_f32.cu'
-    assert k.symbol == 'mocodad_dma_tc32_launch' != P.DENOISER.symbol
-    assert k is not P.DENOISER and k.constants() == P.DENOISER.constants()
+    k, b1 = D.DMA_PIPELINED_F32, P.DENOISER_F32_MMA
+    assert k.source == b1.source == 'denoiser_tc_f32.cu'
+    assert k.symbol == 'mocodad_dma_tc32_launch' != b1.symbol
+    assert k is not b1 and k.constants() == b1.constants()
     assert k.plan(folded, 'cpu') is P.tc32_plan(folded, 'cpu')
     with open(f'{build.CSRC_DIR}/denoiser_tc_f32.cu') as f:
         assert f'extern "C" int {k.symbol}(' in f.read()

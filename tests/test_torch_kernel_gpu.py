@@ -1,5 +1,6 @@
 """The CUDA denoiser kernels on the card, against their plain versions:
-B1 in float32 and bfloat16 (the wgmma kernel and its mma.sync yardstick),
+B1 in float32 and bfloat16 (each the wgmma kernel and its mma.sync
+yardstick),
 B2 (grouped, bfloat16) and B3 (DMA-pipelined, float32 and bfloat16), each
 on the tensor cores and in the FMA design kept as its yardstick.
 
@@ -61,10 +62,11 @@ def _inputs(n, seed):
 @pytest.mark.parametrize('n', [1, 8, 1031, 4096])
 def test_kernel_matches_plain_version(folded, n):
     x, semb = _inputs(n, seed=n)
-    kernels = (P.DENOISER, P.DENOISER_F32_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_MMA, P.DENOISER_F32_FMA)
     before = [k.launches for k in kernels]
     got = P.denoise(x, semb, folded)
-    assert [k.launches for k in kernels] == [before[0] + 1, before[1]]
+    assert [k.launches for k in kernels] == \
+        [before[0] + 1, before[1], before[2]]
     want = P.denoise_reference(x, semb, folded)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -89,11 +91,12 @@ def test_generate_runs_through_the_kernel(folded):
     net = seeded_state(model.build_net(), seed=0).to('cuda').eval()
     data = torch.randn((8, 2, 6, 17), device='cuda',
                        generator=torch.Generator('cuda').manual_seed(3))
-    kernels = (P.DENOISER, P.DENOISER_F32_FMA)
+    kernels = (P.DENOISER, P.DENOISER_F32_MMA, P.DENOISER_F32_FMA)
     before = [k.launches for k in kernels]
     sel, loss = model.generate(net, data,
                                torch.Generator('cuda').manual_seed(4))
-    assert [k.launches for k in kernels] == [before[0] + 9, before[1]]
+    assert [k.launches for k in kernels] == \
+        [before[0] + 9, before[1], before[2]]
     assert sel.shape == (8, 2, 3, 17) and loss.shape == (8,)
     assert np.isfinite(loss.cpu().numpy()).all()
 
@@ -134,12 +137,63 @@ def _sass(kernel):
 
 
 def test_tc32_library_runs_3xtf32_on_the_tensor_cores(folded):
-    """The float32 library's SASS holds TF32 HMMAs, and no bf16 or f16
-    ones: every product runs on the tensor cores in TF32 (three of them
-    per product, which the f32 check at rtol 1e-4 shows)."""
-    sass = _sass(P.DENOISER)
+    """The float32 mma.sync yardstick's SASS holds TF32 HMMAs, and no bf16
+    or f16 ones: every product runs on the tensor cores in TF32 (three of
+    them per product, which the f32 check at rtol 1e-4 shows)."""
+    sass = _sass(P.DENOISER_F32_MMA)
     assert re.search(r'HMMA\.1688\.F32\.TF32', sass)
     assert not re.search(r'HMMA\.\d+\.F32\.(BF16|F16)', sass)
+
+
+def test_wg32_library_runs_3xtf32_on_warpgroup_mma(folded):
+    """The float32 main path's library holds TF32 HGMMA (wgmma)
+    instructions with f32 sums for its channel and residual mixes, its
+    graph mixes' TF32 HMMAs, and no bf16 or f16 product."""
+    sass = _sass(P.DENOISER)
+    assert re.search(r'HGMMA\.64x(16|32|64|128)x8\.F32\.TF32', sass)
+    assert re.search(r'HMMA\.1688\.F32\.TF32', sass)
+    assert not re.search(r'H[G]?MMA\.[\dx]+\.F32\.(BF16|F16)', sass)
+
+
+@pytest.mark.parametrize('n', [51200, 1031, 12800, 25600])
+def test_wg32_kernel_matches_plain_version(folded, n):
+    """B1 float32 on wgmma at the main path's N = 51,200, a ragged N, the
+    serve path's 12,800 and a rank's 25,600, against the plain version and
+    beside its mma.sync yardstick (each launch counted on its own
+    wrapper)."""
+    x, semb = _inputs(n, seed=n + 11)
+    want = P.denoise_reference(x, semb, folded)
+    for kernel in (P.DENOISER, P.DENOISER_F32_MMA):
+        before = [k.launches for k in (P.DENOISER, P.DENOISER_F32_MMA)]
+        got = kernel(x, semb, folded)
+        assert [k.launches for k in (P.DENOISER, P.DENOISER_F32_MMA)] == \
+            [b + (k is kernel) for b, k in zip(
+                before, (P.DENOISER, P.DENOISER_F32_MMA))]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('n', NS)
+def test_f32_mma_kernel_matches_plain_version(folded, n):
+    x, semb = _inputs(n, seed=n + 12)
+    before = P.DENOISER_F32_MMA.launches
+    got = P.DENOISER_F32_MMA(x, semb, folded)
+    assert P.DENOISER_F32_MMA.launches == before + 1
+    want = P.denoise_reference(x, semb, folded)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_f32_mma_wrapper_rejects_what_the_kernel_does_not_take(folded):
+    x, semb = _inputs(16, seed=13)
+    with pytest.raises(ValueError, match='x_ctn must be float32'):
+        P.DENOISER_F32_MMA(x.bfloat16(), semb, folded)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        P.DENOISER_F32_MMA(x.cpu(), semb.cpu(), folded)
+    with pytest.raises(ValueError, match=r'\(2, 51, N\)'):
+        P.DENOISER_F32_MMA(x[:, :50].contiguous(), semb, folded)
 
 
 def _bf16_close(got, want):
@@ -260,9 +314,9 @@ def test_dma_kernel_matches_plain_version(folded, dtype, n):
     torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        # B3 at float32 is B1's 3xTF32 kernel on B1's plan: the same sums
-        # in the same order
-        torch.testing.assert_close(got, P.DENOISER(x, semb, folded),
+        # B3 at float32 is B1's mma.sync 3xTF32 kernel on its plan: the
+        # same sums in the same order
+        torch.testing.assert_close(got, P.DENOISER_F32_MMA(x, semb, folded),
                                    rtol=0, atol=0)
     else:
         _bf16_close(got, want)
@@ -409,6 +463,26 @@ def test_wg_kernel_at_every_frame_count(folded, t):
         assert torch.isfinite(got.float()).all()
         _bf16_close(got, want)
     assert P.wg_plan(fold, xb.device).rows == (4 if t <= 3 else 2)
+
+
+@pytest.mark.parametrize('t', sorted(BF16_FRAMES))
+def test_wg32_kernel_at_every_frame_count(folded, t):
+    """B1 float32 on wgmma (2 rows per tile up to T = 4, 1 above) against
+    the plain version at T = 1-6 at a ragged N and at N = 51,200."""
+    model, net = _model_at(t)
+    fold = model.fold(net)
+    assert fold.n_frames == t
+    g = torch.Generator(device='cuda').manual_seed(t + 50)
+    for n in (1031, 51200):
+        x = torch.randn((2, 17 * t, n), generator=g, device='cuda')
+        semb = torch.nn.functional.silu(
+            torch.randn((16, n), generator=g, device='cuda'))
+        got = P.DENOISER(x, semb, fold)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, P.denoise_reference(x, semb, fold),
+                                   rtol=RTOL, atol=ATOL)
+    assert P.wg32_plan(fold, x.device).rows == (2 if t <= 4 else 1)
 
 
 def test_generate_concat_runs_through_the_kernel(folded):
